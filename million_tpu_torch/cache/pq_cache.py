@@ -1,0 +1,142 @@
+"""PQ KV-cache state, updated in place.
+
+Counterpart of million_tpu/cache/pq_cache.py. The reference package's cache
+is a functional pytree that every step returns anew; here it is a dict of
+preallocated tensors that prefill, decode and flush update IN PLACE, plus two
+host integers:
+
+  key_codes / value_codes : (L, bs, nh_k, N_max, M | M_v) uint8, token-major
+      code arena (the kernel reads token rows; no word packing).
+  key_outliers / value_outliers : (L, bs, nh_k, N_max, OK | OV) bf16 exact
+      outlier channels (only with OK / OV > 0).
+  key_residual / value_residual : (L, bs, nh_k, Lt, d) exact recent tokens in
+      the model dtype.
+  n_codes, r : Python ints, the quantized-token and residual counts. They
+      evolve identically in every layer, so one host counter each replaces
+      the reference's per-layer (L,) arrays, and no step reads them back from
+      the card.
+
+Invariants: visible tokens = n_codes + r; n_codes is a multiple of 4 (prefill
+routes a ragged tail into the residual window and flushes move multiples of
+4 tokens).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from million_tpu_torch import resolve_device
+
+WORD = 4  # n_codes granularity, kept from the reference's word packing
+
+PQCache = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class PQCacheConfig:
+    bs: int
+    nh_k: int
+    d: int
+    M: int
+    C: int = 256
+    Lt: int = 128  # residual window capacity
+    N_max: int = 32768  # code arena capacity (quantized tokens)
+    dtype: Any = torch.bfloat16
+    M_v: Optional[int] = None  # V-side subspace count (None -> M)
+    OK: int = 0  # exact K outlier channels per head vector
+    OV: int = 0  # exact V outlier channels
+
+    def __post_init__(self):
+        if self.N_max % WORD or self.Lt % WORD:
+            raise ValueError("N_max and Lt must be multiples of 4")
+        if self.C > 256:
+            raise NotImplementedError(
+                "codebooks with C > 256 (wide int16 codes) are a later slice of the port"
+            )
+
+    @property
+    def m_v(self) -> int:
+        return self.M_v or self.M
+
+    @property
+    def max_tokens(self) -> int:
+        return self.N_max + self.Lt
+
+
+def init_state(cfg: PQCacheConfig, num_layers: int, device="cuda") -> PQCache:
+    """Empty stacked (num_layers, ...) cache on `device`."""
+    dev = resolve_device(device)
+    L = num_layers
+    st: PQCache = {
+        "key_codes": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.M), dtype=torch.uint8, device=dev),
+        "value_codes": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.m_v), dtype=torch.uint8, device=dev),
+        "key_residual": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.Lt, cfg.d), dtype=cfg.dtype, device=dev),
+        "value_residual": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.Lt, cfg.d), dtype=cfg.dtype, device=dev),
+        "n_codes": 0,
+        "r": 0,
+    }
+    if cfg.OK:
+        st["key_outliers"] = torch.zeros(
+            (L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.OK), dtype=torch.bfloat16, device=dev)
+    if cfg.OV:
+        st["value_outliers"] = torch.zeros(
+            (L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.OV), dtype=torch.bfloat16, device=dev)
+    return st
+
+
+def arena_tokens(arena: torch.Tensor) -> int:
+    """Token capacity of a code arena (..., N_max, M)."""
+    return arena.shape[-2]
+
+
+def cache_memory_bytes(cfg: PQCacheConfig, num_layers: int) -> Dict[str, float]:
+    """Bytes held by the cache, beside its dense bf16 equivalent."""
+    per = cfg.bs * cfg.nh_k * num_layers
+    code_bytes = per * cfg.N_max * (cfg.M + cfg.m_v)
+    out_bytes = per * cfg.N_max * (cfg.OK + cfg.OV) * 2
+    res_bytes = 2 * per * cfg.Lt * cfg.d * torch.tensor([], dtype=cfg.dtype).element_size()
+    dense_bytes = 2 * per * cfg.max_tokens * cfg.d * 2
+    total = code_bytes + out_bytes + res_bytes
+    return {
+        "codes": code_bytes,
+        "outliers": out_bytes,
+        "residual": res_bytes,
+        "total": total,
+        "dense_equivalent": dense_bytes,
+        "compression": dense_bytes / max(total, 1),
+    }
+
+
+def stacked_prefix_write(
+    cache: PQCache,
+    li: int,
+    kc: torch.Tensor,  # (bs, nh_k, n4, M) uint8 codes, n4 % 4 == 0
+    vc: torch.Tensor,  # (bs, nh_k, n4, M_v)
+    k_tail: Optional[torch.Tensor],  # (bs, nh_k, tail, d) exact tail or None
+    v_tail: Optional[torch.Tensor],
+    k_out: Optional[torch.Tensor] = None,  # (bs, nh_k, n4, OK) exact channels
+    v_out: Optional[torch.Tensor] = None,
+) -> None:
+    """Write one layer's prefill chunk in place: codes and outlier channels
+    at token n_codes, the ragged tail into the residual window at r.
+
+    The counters are NOT advanced here: they are shared by all layers, so
+    the caller advances them once after writing every layer."""
+    n4 = kc.shape[2]
+    s = cache["n_codes"]
+    if s + n4 > cache["key_codes"].shape[3]:
+        raise ValueError(f"prefix of {n4} codes overflows the arena at {s}")
+    if n4:
+        cache["key_codes"][li, :, :, s:s + n4] = kc
+        cache["value_codes"][li, :, :, s:s + n4] = vc
+        if k_out is not None:
+            cache["key_outliers"][li, :, :, s:s + n4] = k_out.to(torch.bfloat16)
+        if v_out is not None:
+            cache["value_outliers"][li, :, :, s:s + n4] = v_out.to(torch.bfloat16)
+    if k_tail is not None and k_tail.shape[2]:
+        r0, t = cache["r"], k_tail.shape[2]
+        cache["key_residual"][li, :, :, r0:r0 + t] = k_tail
+        cache["value_residual"][li, :, :, r0:r0 + t] = v_tail
