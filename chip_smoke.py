@@ -7,21 +7,39 @@
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of the CUDA kernels from million_tpu_torch/csrc with nvcc;
+  2. the build of the three CUDA sources of million_tpu_torch/csrc with nvcc,
+     one nvcc each, started together;
   3. every kernel against its plain PyTorch version on the card at the main
-     path's shapes (llama-3.2-3b: G=3, d=128, 8 KV heads, batch 4, a 32K
-     arena holding 32768-512 codes, a bf16 residual window with 97 live
-     rows merged in) in the three geometries and through the
-     single-layer entry, with its time, its bound and the plain version's
-     time; dense bf16 SDPA over the same length is printed as a yardstick;
-  4. the main path: generate() at the full width of llama-3.2-3b (28 layers,
-     random weights from a seed, bench.py's synthetic codebooks), 4 requests
-     of 32,000-token prompts and 160 new tokens with F=16 sub-window flushes,
-     in mode "pq_kernel" for dm2 and dm4_outlier_c128, with TTFT, TPOT,
-     tokens/s and the kernel's launch count (= layers x decode steps); four
-     teacher-forced steps, one just after a flush, against the plain oracle
-     mode "pq"; a test-tiny generate on the card against the CPU; dense-mode
-     TPOT beside;
+     paths' shapes (llama-3.2-3b: G=3, d=128, 8 KV heads, batch 4), with its
+     time, its bound and the plain version's time:
+     - pq_decode_attention over a 32K arena holding 32768-512 codes, a bf16
+       residual window with 97 live rows merged in, in the three geometries
+       and through the single-layer entry; dense bf16 SDPA over the same
+       length is printed as a yardstick;
+     - pq_encode at the prefill shape (1.024 M rows, "fast"), at the chunked
+       path's shapes (a 4096-token chunk and the last one of 3,328) and at
+       the flush shape (28 banks of 4 x 8 x 16 rows) in dm2 and
+       dm4_outlier_c128, and on integer-valued inputs; the torch
+       baddbmm + argmin encode beside it;
+     - pq_chunk_attention for a 4096-token chunk (12,288 rows per KV head)
+       over 28,672 history tokens in dm2 and dm4_outlier_c128, in both
+       precisions (f32, and the bf16 tensor-core version the 16-bit model
+       takes); dense bf16 SDPA over the same lengths as a yardstick;
+  4. the main paths, at the full width of llama-3.2-3b (28 layers, random
+     weights from a seed, bench.py's synthetic codebooks), 4 requests of
+     32,000-token prompts, in mode "pq_kernel" for dm2 and dm4_outlier_c128:
+     - the flat path: generate() with 160 new tokens and F=16 sub-window
+       flushes, with TTFT, TPOT, tokens/s and the launch counts (decode
+       kernel = layers x decode steps, encode kernel = 2 x layers + 2 per
+       flush); four teacher-forced steps, one just after a flush, against
+       the plain oracle mode "pq";
+     - the chunked path: generate(prefill_chunk=4096) with 17 new tokens,
+       with TTFT, peak memory and the launch counts (chunk kernel = layers x
+       (chunks - 1), encode kernel = 2 x layers x chunks); the last chunk's
+       logits through the kernel against the plain history route on the
+       same cache;
+     a test-tiny generate, flat and chunked, on the card against the CPU;
+     dense-mode TTFT and TPOT beside;
   5. a JSON line of the kernels, then the card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
@@ -32,13 +50,28 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 BS, PROMPT, N_MAX, NEW_TOKENS, FLUSH = 4, 32000, 32768, 160, 16
+CHUNK, CHUNK_NEW_TOKENS = 4096, 17  # the chunked path: 8 chunks, 16 decode steps
+N_PREV = N_MAX - CHUNK  # kernel phase: the longest history a 32K arena gives a chunk
 N_CODES = N_MAX - 512  # kernel phase: the arena fill of bench.py's decode
 RESIDUAL_ROWS = 97  # kernel phase: live rows of the 128-row residual window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-KERNEL_TOL = 1e-3  # f32 kernel vs f32 plain version: only summation order differs
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+ENCODE_AGREE, ENCODE_MSE_RTOL = 0.999, 1e-4  # kernel vs plain: ties may flip on summation order
+KERNEL_TOL = 1e-3  # f32 decode kernel vs f32 plain version: only summation order differs
+# pq_chunk_attention vs its plain version. Over 28,672 near-uniformly weighted tokens `out` is
+# small (rms ~ 0.07, max ~ 0.2) while `lse` is ~ 10, so each has its own limit, 10x what an
+# H100 measured: `out` 2.1e-6 (f32) and 5.2e-5 (bf16), `lse` 1.9e-6 (two f32 steps at 10).
+CHUNK_OUT_TOL = {"f32": 2e-5,  # only summation order differs
+                 "bf16": 5e-4}  # the plain version rounds q, K_hat, V_hat and P to bf16 at the same
+# places; the two round P against different running maxima (64-token tile, 1024-token block)
+CHUNK_LSE_TOL = 2e-5
+# the tensor-core version's distance from the f32 result (bf16 rounding of q, K_hat, V_hat and
+# P): measured 5.3e-4 on `out` and 2.0e-3 on `lse`
+CHUNK_GAP_OUT_TOL, CHUNK_GAP_LSE_TOL = 5e-3, 2e-2
 LOGIT_TOL = 0.25  # bf16 model, pq_kernel vs pq: attention agrees to ~1e-6 in f32,
 # then bf16 rounding of the activations compounds over 28 layers
 GEOMETRIES = {  # bench.py:65-107
@@ -46,8 +79,15 @@ GEOMETRIES = {  # bench.py:65-107
     "dm4_outlier": dict(M=32, C=256, O=16),
     "dm4_outlier_c128": dict(M=32, C=128, O=16),
 }
-REPLACES = "million_tpu/ops/pq_attention_pallas.py:837"
-SOURCE = "million_tpu_torch/csrc/pq_decode_attention.cu"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "pq_decode_attention": ("million_tpu_torch/csrc/pq_decode_attention.cu",
+                            "million_tpu/ops/pq_attention_pallas.py:837"),
+    "pq_chunk_attention": ("million_tpu_torch/csrc/pq_chunk_attention.cu",
+                           "million_tpu/ops/pq_attention_pallas.py:1068"),
+    "pq_encode": ("million_tpu_torch/csrc/pq_encode.cu",
+                  "million_tpu/ops/pq_encode_pallas.py:84"),
+}
+PATH_GEOMETRIES = ("dm2", "dm4_outlier_c128")
 
 
 def log(*a):
@@ -179,6 +219,189 @@ def kernel_phase(dev):
     return rows
 
 
+def bound_of(nbytes: int, ops: int, ops_per_s: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def encode_phase(dev):
+    """pq_encode vs its plain version at the prefill and flush shapes."""
+    import torch
+
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.ops import pq_encode_kernel as E
+    from million_tpu_torch.pq.ops import pq_decode, pq_encode_chunked
+
+    nh_k, d, L = 8, 128, 28
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+
+    def compare(got, want, x, cents_s, what):
+        agree = float((got == want).float().mean())
+        mses = []
+        for codes in (got, want):
+            err = torch.zeros((), device=dev)
+            for s in range(cents_s.shape[0]):  # per bank, a slab of rows at a time
+                flat_c, flat_x = codes[s].reshape(-1, codes.shape[-1]), x[s].reshape(-1, d)
+                for r0 in range(0, flat_c.shape[0], 1 << 18):
+                    rec = pq_decode(flat_c[r0:r0 + (1 << 18)], cents_s[s], "strided")
+                    err += (rec - flat_x[r0:r0 + (1 << 18)].float()).square().sum()
+            mses.append(float(err) / x.numel())
+        rel = abs(mses[0] - mses[1]) / mses[1]
+        ok = agree >= ENCODE_AGREE and rel <= ENCODE_MSE_RTOL
+        log(f"[kernel] pq_encode {what}: agreement {agree:.6f} (>= {ENCODE_AGREE}), "
+            f"reconstruction MSE {mses[0]:.6g} vs plain {mses[1]:.6g} (rel {rel:.2g} <= "
+            f"{ENCODE_MSE_RTOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"pq_encode disagrees with its plain version ({what})")
+        return 1.0 - agree
+
+    for geom in PATH_GEOMETRIES:
+        M, C = GEOMETRIES[geom]["M"], GEOMETRIES[geom]["C"]
+        cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=5), device=dev)["key"]
+        # prefill shape: the model's (bs, heads, n, d) view of a (bs, n, heads, d) projection
+        x = torch.randn((BS, PROMPT, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        n_rows = BS * nh_k * PROMPT
+
+        def kern():
+            return E.pq_encode_fused(x, cents[0], "strided", "fast")
+
+        def plain():
+            return E.pq_encode_fused_plain(x[None], cents[:1], "strided", "fast")[0]
+
+        def library():
+            return pq_encode_chunked(x, cents[0], "strided", precision="fast")
+
+        got = kern()
+        torch.cuda.synchronize()
+        miss = compare(got[None], plain()[None], x[None], cents[:1], f"{geom} prefill shape "
+                       f"({n_rows} rows x d={d} bf16)")
+        ms, plain_ms, lib_ms = cuda_ms(kern, 20), cuda_ms(plain, 2, warm=1), cuda_ms(library, 2, warm=1)
+        nbytes, ops = E.encode_bytes(n_rows, d, M, 2), E.encode_ops(n_rows, M, C, d // M)
+        bound_ms, bound_by = bound_of(nbytes, ops, F32_OPS_PER_S)
+        log(f"[kernel] pq_encode {geom} prefill shape: kernel={ms:.4f} ms bound={bound_ms:.4f} ms "
+            f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop) plain={plain_ms:.3f} ms "
+            f"torch baddbmm+argmin (pq_encode_chunked)={lib_ms:.3f} ms")
+        rows[geom] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=miss, library_ms=lib_ms)
+        # the shapes the chunked path gives it: a whole chunk and the last, shorter one,
+        # each the (bs, heads, n, d) view of that chunk's own projection
+        for n in (CHUNK, PROMPT % CHUNK):
+            xc = torch.randn((BS, n, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+            compare(E.pq_encode_fused(xc, cents[0], "strided", "fast")[None],
+                    E.pq_encode_fused_plain(xc[None], cents[:1], "strided", "fast"), xc[None],
+                    cents[:1], f"{geom} chunk shape ({BS} x {nh_k} x {n} rows)")
+        # integer-valued inputs: nothing rounds, codes must be bit-equal
+        xi = torch.randint(-4, 5, (BS, 2048, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        ci = torch.randint(-4, 5, cents[0].shape, generator=gen, device=dev).float()
+        same = bool((E.pq_encode_fused(xi, ci, "strided", "fast")
+                     == E.pq_encode_fused_plain(xi[None], ci[None], "strided", "fast")[0]).all())
+        log(f"[kernel] pq_encode {geom} integer-valued inputs: codes bit-equal {same}")
+        if not same:
+            raise RuntimeError(f"pq_encode differs on integer inputs ({geom})")
+        # flush shape: the oldest 16 rows of every layer's residual window, one bank per layer
+        window = torch.randn((L, BS, nh_k, 128, d), generator=gen, device=dev).bfloat16()[:, :, :, :FLUSH]
+
+        def kern_f():
+            return E.pq_encode_fused_stacked(window, cents, "strided", "fast")
+
+        def plain_f():
+            return E.pq_encode_fused_plain(window, cents, "strided", "fast")
+
+        compare(kern_f(), plain_f(), window, cents, f"{geom} flush shape ({L} banks x "
+                f"{BS * nh_k * FLUSH} rows)")
+        log(f"[kernel] pq_encode {geom} flush shape: kernel={cuda_ms(kern_f, 50):.4f} ms "
+            f"plain={cuda_ms(plain_f, 10):.4f} ms")
+        del x, got, window
+        torch.cuda.empty_cache()
+    return rows
+
+
+def chunk_phase(dev):
+    """pq_chunk_attention vs its plain version for one chunk over the longest history."""
+    import torch
+    import torch.nn.functional as F
+
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.ops import pq_chunk_attention_kernel as K
+
+    nh_k, G, d = 8, 3, 128
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for geom in PATH_GEOMETRIES:
+        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+        cents = cents_from_numpy(synthetic_cents(1, d, geom, seed=7), device=dev)
+        q = torch.randn((BS, nh_k * G, CHUNK, d), generator=gen, device=dev)
+        qr = K.group_rows(q, nh_k, 1.0 / d**0.5).contiguous()  # (bs, nh_k, 12288, d)
+        kc = torch.randint(0, C, (BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
+        vc = torch.randint(0, C, (BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
+        okw = {}
+        if O:
+            okw = dict(
+                koidx=cents["k_outlier_idx"][0], voidx=cents["v_outlier_idx"][0],
+                k_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16(),
+                v_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16())
+
+        QR = CHUNK * G
+        nbytes = K.chunk_bytes(BS, nh_k, QR, d, N_PREV, M, M, O, O) + 2 * C * d * 4
+        ops = K.chunk_ops(BS, nh_k, QR, d, N_PREV, O)
+        bound_ms, bound_by = bound_of(nbytes, ops, BF16_OPS_PER_S)
+        # dense bf16 attention over the same lengths: a yardstick, not the same function
+        qd = q.bfloat16()
+        kd = torch.randn((BS, nh_k, N_PREV, d), generator=gen, device=dev).bfloat16()
+        vd = torch.randn((BS, nh_k, N_PREV, d), generator=gen, device=dev).bfloat16()
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True), 5)
+        del qd, kd, vd
+        exact = None
+        for precision in ("f32", "bf16"):
+            def kern():
+                return K.pq_chunk_attention(qr, kc, vc, cents["key"][0], cents["value"][0], N_PREV,
+                                            precision=precision, **okw)
+
+            def plain():
+                return K.pq_chunk_attention_plain(qr, kc, vc, cents["key"][0], cents["value"][0],
+                                                  N_PREV, precision=precision, **okw)
+
+            out_k, lse_k = kern()
+            torch.cuda.synchronize()
+            out_p, lse_p = plain()
+            # through the GQA wrapper the path calls, against the regrouped plain result
+            out_w, lse_w = K.pq_chunk_history_attention(q, kc, vc, cents["key"][0], cents["value"][0],
+                                                        N_PREV, 1.0 / d**0.5, precision=precision, **okw)
+            out_g, lse_g = K.ungroup_rows(out_p, lse_p, nh_k * G)
+            rms, peak = float(out_p.square().mean().sqrt()), float(out_p.abs().max())
+            err_out = max(float((out_k - out_p).abs().max()), float((out_w - out_g).abs().max()))
+            err_lse = max(float((lse_k - lse_p).abs().max()), float((lse_w - lse_g).abs().max()))
+            if exact is None:
+                exact = (out_p, lse_p)
+            gap_out = float((out_k - exact[0]).abs().max())
+            gap_lse = float((lse_k - exact[1]).abs().max())
+            tol_out = CHUNK_OUT_TOL[precision]
+            ok = (bool(torch.isfinite(out_k).all()) and err_out <= tol_out and err_lse <= CHUNK_LSE_TOL
+                  and gap_out <= CHUNK_GAP_OUT_TOL and gap_lse <= CHUNK_GAP_LSE_TOL)
+            del out_k, out_p, out_w, out_g
+            ms, plain_ms = cuda_ms(kern, 3, warm=1), cuda_ms(plain, 1, warm=0)
+            rows[(geom, precision)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                           max_abs_err=max(err_out, err_lse), library_ms=None)
+            log(f"[kernel] pq_chunk_attention {geom} {precision}: bs={BS} rows={QR} n_prev={N_PREV} "
+                f"out rms={rms:.3g} max={peak:.3g} out_err={err_out:.3g} (tol {tol_out:g}) "
+                f"lse_err={err_lse:.3g} (tol {CHUNK_LSE_TOL:g}), kernel and GQA wrapper; gap to the f32 "
+                f"plain version out {gap_out:.3g} (tol {CHUNK_GAP_OUT_TOL:g}) lse {gap_lse:.3g} "
+                f"(tol {CHUNK_GAP_LSE_TOL:g}) "
+                f"kernel={ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s) bound={bound_ms:.3f} ms ({bound_by}, "
+                f"bf16 tensor-core peak; f32 rate: {ops / F32_OPS_PER_S * 1e3:.1f} ms; "
+                f"{nbytes / 1e6:.1f} MB, {ops / 1e12:.2f} TFLOP) plain={plain_ms:.1f} ms "
+                f"dense_bf16_sdpa={sdpa_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"pq_chunk_attention disagrees with its plain version ({geom}, {precision})")
+        del exact
+        del q, qr, kc, vc, okw
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tiny_check(dev):
     """Small input: test-tiny generate on the card (kernel) vs on the CPU
     (the kernel's plain version) must give the same greedy tokens."""
@@ -202,28 +425,36 @@ def tiny_check(dev):
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 10)))
     pqc = PQCacheConfig(bs=2, nh_k=2, d=16, M=4, C=64, Lt=8, N_max=128,
                         dtype=torch.float32, OK=4, OV=4)
-    toks = []
-    for d in ("cpu", dev):
-        res, _ = generate(p_cpu if d == "cpu" else p_dev, cfg, ids.to(d), init_state(pqc, 2, device=d),
-                          cents_from_numpy(c, device=d), max_new_tokens=16, flush_chunk=4, device=d)
-        toks.append(res.tokens)
-    same = bool((toks[0] == toks[1]).all())
-    log(f"[tiny] test-tiny generate, card vs cpu greedy tokens equal: {same}")
-    if not same:
-        raise RuntimeError(f"test-tiny tokens differ: {toks}")
+    for what, kw in (("flat", {}), ("chunked (prefill_chunk=4)", dict(prefill_chunk=4))):
+        toks = []
+        for d in ("cpu", dev):
+            res, _ = generate(p_cpu if d == "cpu" else p_dev, cfg, ids.to(d), init_state(pqc, 2, device=d),
+                              cents_from_numpy(c, device=d), max_new_tokens=16, flush_chunk=4, device=d, **kw)
+            toks.append(res.tokens)
+        same = bool((toks[0] == toks[1]).all())
+        log(f"[tiny] test-tiny generate, {what}, card vs cpu greedy tokens equal: {same}")
+        if not same:
+            raise RuntimeError(f"test-tiny tokens differ ({what}): {toks}")
 
 
 def main_path(dev):
-    """generate() at full llama-3.2-3b width through the kernel."""
+    """generate() at full llama-3.2-3b width through the kernels: the flat
+    path, then the chunked-prefill path. Returns the launches of every
+    kernel on every path: {kernel: {geometry: {path: n}}}."""
     import torch
 
     from million_tpu_torch.cache.dense_cache import DenseCacheConfig, init_dense_state
     from million_tpu_torch.cache.pq_cache import PQCacheConfig, cache_memory_bytes, init_state
     from million_tpu_torch.convert import cents_from_numpy
     from million_tpu_torch.models import llama
-    from million_tpu_torch.ops import pq_attention_kernel as K
+    from million_tpu_torch.models.chunked_prefill import _prefill_one_chunk
+    from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention_stacked
+    from million_tpu_torch.ops.pq_chunk_attention_kernel import pq_chunk_attention
+    from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
     from million_tpu_torch.runtime.generate import generate
 
+    wrappers = {"pq_decode_attention": pq_codes_attention_stacked,
+                "pq_chunk_attention": pq_chunk_attention, "pq_encode": pq_encode_fused_stacked}
     cfg = llama.PRESETS["llama-3.2-3b"]
     L, d = cfg.num_layers, cfg.head_dim
     t0 = time.perf_counter()
@@ -234,28 +465,43 @@ def main_path(dev):
         f"init {time.perf_counter() - t0:.1f} s")
     ids = torch.randint(0, cfg.vocab_size, (BS, PROMPT), generator=torch.Generator(device=dev).manual_seed(1),
                         device=dev)
-    launches, results = {}, {}
-    for geom in ("dm2", "dm4_outlier_c128"):
+    launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in wrappers}
+    n_chunks = -(-PROMPT // CHUNK)
+
+    def drive(geom, path, cache, cents, **kw):
+        """One path run with every count set to 0 just before and read just after."""
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9  # weights, cache, ids
+        for w in wrappers.values():
+            w.launches = 0
+        res, cache = generate(params, cfg, ids, cache, cents, mode="pq_kernel", device=dev, **kw)
+        for k, w in wrappers.items():
+            launches[k][geom][path] = w.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        return res, f"{peak:.2f} GB ({peak - held:.2f} GB over the {held:.2f} GB held before)"
+
+    def tokens_ok(res, n_new):
+        return res.tokens.shape == (BS, n_new) and bool(
+            ((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all())
+
+    ttft = {}
+    for geom in PATH_GEOMETRIES:
         g = GEOMETRIES[geom]
         cents = cents_from_numpy(synthetic_cents(L, d, geom), device=dev)
         pqc = PQCacheConfig(bs=BS, nh_k=cfg.num_kv_heads, d=d, M=g["M"], C=g["C"], Lt=128,
                             N_max=N_MAX, OK=g["O"], OV=g["O"])
         cache = init_state(pqc, L, device=dev)
-        torch.cuda.reset_peak_memory_stats()
-        K.pq_codes_attention_stacked.launches = 0  # counts from here: the main path only
-        res, cache = generate(params, cfg, ids, cache, cents, mode="pq_kernel",
-                              max_new_tokens=NEW_TOKENS, flush_chunk=FLUSH, device=dev)
-        n_launch = K.pq_codes_attention_stacked.launches
-        launches[geom] = n_launch
-        want = L * (NEW_TOKENS - 1)
-        toks_ok = res.tokens.shape == (BS, NEW_TOKENS) and ((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all()
-        log(f"[generate] {geom}: TTFT {res.ttft_s:.3f} s, TPOT {res.tpot_s * 1e3:.3f} ms, "
+        res, peak = drive(geom, "flat", cache, cents, max_new_tokens=NEW_TOKENS, flush_chunk=FLUSH)
+        got = {k: launches[k][geom]["flat"] for k in wrappers}
+        want = {"pq_decode_attention": L * (NEW_TOKENS - 1), "pq_chunk_attention": 0,
+                "pq_encode": 2 * L + 2 * res.n_flushes}
+        log(f"[generate] {geom} flat: TTFT {res.ttft_s:.3f} s, TPOT {res.tpot_s * 1e3:.3f} ms, "
             f"{BS / res.tpot_s:.1f} tok/s (bs={BS}), flushes={res.n_flushes}, "
-            f"kernel launches={n_launch} (want {want}), peak mem "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, cache "
+            f"launches={got} (want {want}), peak mem {peak}, cache "
             f"{cache_memory_bytes(pqc, L)['total'] / 1e9:.2f} GB")
-        if n_launch != want or res.n_flushes < 2 or not toks_ok:
-            raise RuntimeError(f"main path check failed for {geom}")
+        if got != want or res.n_flushes < 2 or not tokens_ok(res, NEW_TOKENS):
+            raise RuntimeError(f"flat path check failed for {geom}")
+        ttft[(geom, "flat")] = res.ttft_s
         # teacher-forced steps against the oracle mode, one just after a flush
         tok = torch.from_numpy(res.tokens[:, -1]).to(dev)
         pos, gaps, after_flush = PROMPT + NEW_TOKENS - 1, [], []
@@ -276,13 +522,45 @@ def main_path(dev):
             f"{['%.4g' % x for x in gaps]} (after flush: {after_flush}; tol {LOGIT_TOL})")
         if max(gaps) > LOGIT_TOL or not any(after_flush):
             raise RuntimeError(f"teacher-forced check failed for {geom}")
-        results[geom] = res
+
+        # the chunked path on a fresh cache
         del cache
         torch.cuda.empty_cache()
+        cache = init_state(pqc, L, device=dev)
+        res, peak_c = drive(geom, "chunked", cache, cents, max_new_tokens=CHUNK_NEW_TOKENS,
+                            prefill_chunk=CHUNK)
+        got = {k: launches[k][geom]["chunked"] for k in wrappers}
+        want = {"pq_decode_attention": L * (CHUNK_NEW_TOKENS - 1),
+                "pq_chunk_attention": L * (n_chunks - 1),
+                "pq_encode": 2 * L * n_chunks + 2 * res.n_flushes}
+        counters = (cache["n_codes"], cache["r"])
+        log(f"[generate] {geom} chunked (prefill_chunk={CHUNK}, {n_chunks} chunks): TTFT "
+            f"{res.ttft_s:.3f} s (flat {ttft[(geom, 'flat')]:.3f} s), TPOT {res.tpot_s * 1e3:.3f} ms, "
+            f"launches={got} (want {want}), n_codes/r={counters}, peak mem {peak_c}; "
+            f"flat: {peak}")
+        if got != want or counters != (PROMPT, CHUNK_NEW_TOKENS - 1) or not tokens_ok(res, CHUNK_NEW_TOKENS):
+            raise RuntimeError(f"chunked path check failed for {geom}")
+        ttft[(geom, "chunked")] = res.ttft_s
+        # the last chunk again over the same history, kernel route vs plain route
+        s_last = (n_chunks - 1) * CHUNK
+        logits = []
+        for use_kernel in (True, False):
+            cache["n_codes"], cache["r"] = s_last, 0
+            logits.append(_prefill_one_chunk(params, cfg, ids[:, s_last:], cache, cents, s_last,
+                                             last_chunk=True, hist_block=1024, use_kernel=use_kernel))
+        gap = float((logits[0] - logits[1]).abs().max())
+        finite = bool(torch.isfinite(logits[0]).all())
+        log(f"[chunked] {geom}: last-chunk logits, kernel history vs plain history on the card: "
+            f"max gap {gap:.4g} (tol {LOGIT_TOL}), finite {finite}, shape {tuple(logits[0].shape)}")
+        if gap > LOGIT_TOL or not finite or logits[0].shape != (BS, cfg.vocab_size):
+            raise RuntimeError(f"chunked last-chunk check failed for {geom}")
+        del cache, logits
+        torch.cuda.empty_cache()
     dcache = init_dense_state(DenseCacheConfig(bs=BS, nh_k=cfg.num_kv_heads, d=d, N_max=N_MAX), L, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     dres, _ = generate(params, cfg, ids, dcache, None, mode="dense", max_new_tokens=33, device=dev)
     log(f"[generate] dense bf16 KV: TTFT {dres.ttft_s:.3f} s, TPOT {dres.tpot_s * 1e3:.3f} ms, "
-        f"{BS / dres.tpot_s:.1f} tok/s (bs={BS})")
+        f"{BS / dres.tpot_s:.1f} tok/s (bs={BS}), peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches
 
 
@@ -294,7 +572,6 @@ def main() -> int:
         return 2
     try:
         from million_tpu_torch.ops import cuda_build
-        from million_tpu_torch.ops import pq_attention_kernel as K
     except ImportError as e:
         print(f"chip_smoke: million_tpu_torch not importable ({e}); run from the repo root",
               file=sys.stderr)
@@ -305,27 +582,35 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    built = cuda_build.build("pq_decode_attention")
-    usage = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    log(f"[build] {built.path.name}: nvcc {built.build_s:.2f} s (wall {time.perf_counter() - t0:.2f} s); "
-        f"ptxas: {' | '.join(usage[-3:])}")
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        builds = list(pool.map(cuda_build.build, KERNELS))
+    for built in builds:
+        usage = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
+        log(f"[build] {built.path.name}: nvcc {built.build_s:.2f} s; ptxas: "
+            f"{' | '.join(usage[-4:]) if built.log else 'cached'}")
+    log(f"[build] {len(builds)} libraries in {time.perf_counter() - t0:.2f} s wall")
 
-    rows = kernel_phase(dev)
+    # the paths run a bf16 model, whose history partial takes the tensor-core version
+    rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev).items() if e == "stacked"},
+            "pq_encode": encode_phase(dev),
+            "pq_chunk_attention": {g: r for (g, pr), r in chunk_phase(dev).items() if pr == "bf16"}}
     if "--kernels-only" in sys.argv[1:]:
         return 0
     tiny_check(dev)
     launches = main_path(dev)
 
     kernels = []
-    for geom in ("dm2", "dm4_outlier_c128"):
-        r = rows[(geom, "stacked")]
-        kernels.append({
-            "name": f"pq_decode_attention[{geom}]", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[geom], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-        })
+    for name, (source, replaces) in KERNELS.items():
+        for geom in PATH_GEOMETRIES:
+            r = rows[name][geom]
+            kernels.append({
+                "name": f"{name}[{geom}]", "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(launches[name][geom].values()), "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            })
     if any(k["launches"] <= 0 for k in kernels):
         raise RuntimeError("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}))

@@ -38,9 +38,9 @@ from million_tpu_torch.ops.pq_attention_ref import (
     causal_attention,
     pq_decode_attention_ref,
 )
+from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
 from million_tpu_torch.pq.ops import (
     RUNTIME_ENCODE_PRECISION,
-    pq_encode,
     runtime_encode,
     zero_channels,
 )
@@ -458,7 +458,8 @@ def decode_step(
 @torch.no_grad()
 def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int = 0) -> None:
     """Flush the oldest n rows of every layer's residual window into the code
-    arena, IN PLACE: one encode per side over all layers, codes and exact
+    arena, IN PLACE: one fused encode per side with a codebook bank per layer
+    (the kernel on the card, its plain version on the CPU), codes and exact
     outlier channels (cast to bf16) written at n_codes, then the surviving
     rows roll down (n < Lt) or the window empties (n = 0 or Lt)."""
     Lt = cache["key_residual"].shape[3]
@@ -474,8 +475,8 @@ def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int 
     for side in ("key", "value"):
         res = cache[side + "_residual"]
         window = res[:, :, :, :n]
-        codes = pq_encode(window, cents[side], SUBSPACE_LAYOUT, batched_cents=True,
-                          precision=RUNTIME_ENCODE_PRECISION)
+        codes = pq_encode_fused_stacked(window, cents[side], SUBSPACE_LAYOUT,
+                                        precision=RUNTIME_ENCODE_PRECISION)
         cache[side + "_codes"][:, :, :, s:s + n] = codes
         arena = cache.get(side + "_outliers")
         if arena is not None:

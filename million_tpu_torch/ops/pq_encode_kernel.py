@@ -1,0 +1,172 @@
+"""Fused PQ encode: the hand-written CUDA kernel (csrc/pq_encode.cu) and its
+plain PyTorch version.
+
+Counterpart of million_tpu/ops/pq_encode_pallas.py::pq_encode_fused_stacked
+and pq_encode_fused, without their `tb` and `interpret` arguments. Contract:
+x (S, ..., d) any float, cents (S, M, C, d_m) f32 -> codes (S, ..., M) uint8,
+code = argmin_c ||x_m - c||^2 with ties to the lowest index; "fast" rounds x
+and the centroids to bf16 and sums in f32, "exact" keeps f32. The kernel never
+writes the (rows, M, C) distances; the plain version (pq/ops.pq_encode, a
+batched GEMM plus argmin over row chunks) does.
+
+`pq_encode_fused_stacked` runs the plain version for CPU tensors, launches
+the kernel for CUDA tensors, and raises otherwise; it counts kernel launches
+in `pq_encode_fused_stacked.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Tuple
+
+import torch
+
+from million_tpu_torch.pq.ops import pq_encode
+
+TILE = 256  # token rows per block (TB in the .cu source)
+KERNEL_DM = (1, 2, 4, 8)  # subspace widths the kernel is built for
+PLAIN_MAX_DIST = 1 << 28  # f32 distances the plain version holds at a time
+
+_lib = None
+
+
+def _library():
+    """Build (first call) and bind csrc/pq_encode.cu."""
+    global _lib
+    if _lib is None:
+        from million_tpu_torch.ops.cuda_build import build
+
+        lib = build("pq_encode").lib
+        lib.pq_encode.restype = ctypes.c_int
+        lib.pq_encode.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_long] * 7
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.pq_encode_tile.restype = ctypes.c_int
+        if lib.pq_encode_tile() != TILE:
+            raise RuntimeError("TILE differs between the Python wrapper and the CUDA source")
+        _lib = lib
+    return _lib
+
+
+def pq_encode_fused_plain(
+    x: torch.Tensor,  # (S, ..., d)
+    cents: torch.Tensor,  # (S, M, C, d_m)
+    layout: str = "contiguous",
+    precision: str = "fast",
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: pq_encode with one codebook bank
+    per leading index of x, over row chunks that bound the (rows, M, C) f32
+    distance transient."""
+    S, M, C, _ = cents.shape
+    if x.shape[0] != S:
+        raise ValueError(f"x banks {x.shape[0]} != cents banks {S}")
+    d = x.shape[-1]
+    rows = x.reshape(S, -1, d)
+    R = rows.shape[1]
+    step = max(1, PLAIN_MAX_DIST // max(S * M * C, 1))
+    parts = [
+        pq_encode(rows[:, r0:r0 + step], cents, layout, batched_cents=True, precision=precision)
+        for r0 in range(0, R, step)
+    ]
+    codes = torch.cat(parts, dim=1) if parts else rows.new_zeros((S, 0, M), dtype=torch.uint8)
+    return codes.reshape(*x.shape[:-1], M)
+
+
+def _collapse(shape: Tuple[int, ...], strides: Tuple[int, ...]) -> List[Tuple[int, int]]:
+    """Merge neighbouring dims that one stride can walk: [(size, stride), ...]
+    over the same elements in the same order."""
+    dims: List[Tuple[int, int]] = []
+    for n, s in zip(shape, strides):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == n * s:
+            dims[-1] = (dims[-1][0] * n, s)
+        else:
+            dims.append((n, s))
+    return dims
+
+
+def _launch(x, cents, layout, precision):
+    if layout not in ("contiguous", "strided"):
+        raise ValueError(f"unknown subspace layout {layout!r}")
+    if precision not in ("fast", "exact"):
+        raise ValueError(f"unknown encode precision {precision!r}")
+    dev = x.device
+    if cents.device != dev or cents.dtype != torch.float32 or cents.dim() != 4 \
+            or not cents.is_contiguous():
+        raise ValueError(
+            f"cents: want a contiguous (S, M, C, d_m) float32 tensor on {dev}, got "
+            f"{tuple(cents.shape)} {cents.dtype} on {cents.device}")
+    S, M, C, d_m = cents.shape
+    d = x.shape[-1]
+    if x.dim() < 2 or x.shape[0] != S:
+        raise ValueError(f"x banks {tuple(x.shape)} != cents banks {S}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if d != M * d_m or d_m not in KERNEL_DM or not 1 <= C <= 256:
+        raise ValueError(f"unsupported geometry d={d} M={M} C={C} d_m={d_m}")
+    codes = torch.empty((*x.shape[:-1], M), dtype=torch.uint8, device=dev)
+    if codes.numel() == 0:
+        return codes, False
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    dims = _collapse(tuple(x.shape[1:-1]), tuple(x.stride()[1:-1]))
+    if len(dims) > 3:
+        x = x.contiguous()
+        dims = _collapse(tuple(x.shape[1:-1]), tuple(x.stride()[1:-1]))
+    dims = [(1, 0)] * (3 - len(dims)) + dims
+    (n0, s0), (n1, s1), (n2, s2) = dims
+    err = _library().pq_encode(
+        x.data_ptr(), cents.data_ptr(), codes.data_ptr(), S, n0, n1, n2,
+        x.stride(0), s0, s1, s2, M, C, d_m, int(x.dtype == torch.bfloat16),
+        int(layout == "strided"), int(precision == "fast"),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"pq_encode launch failed: CUDA error {err}")
+    return codes, True
+
+
+def pq_encode_fused_stacked(
+    x: torch.Tensor,  # (S, ..., d), one codebook bank per leading index
+    cents: torch.Tensor,  # (S, M, C, d_m) f32
+    layout: str = "contiguous",
+    precision: str = "fast",
+) -> torch.Tensor:
+    """Encode S banks in one launch -> (S, ..., M) uint8. The flush uses
+    S = num_layers (every layer's residual window, one launch per side),
+    prefill S = 1. x may be a strided view with a dense last dim."""
+    if x.device.type == "cpu":
+        return pq_encode_fused_plain(x, cents, layout, precision)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    codes, launched = _launch(x, cents, layout, precision)
+    if launched:
+        pq_encode_fused_stacked.launches += 1
+    return codes
+
+
+pq_encode_fused_stacked.launches = 0
+
+
+def pq_encode_fused(
+    x: torch.Tensor,  # (..., d)
+    cents: torch.Tensor,  # (M, C, d_m)
+    layout: str = "contiguous",
+    precision: str = "fast",
+) -> torch.Tensor:
+    """Single-codebook fused encode: (..., d) -> (..., M) uint8."""
+    return pq_encode_fused_stacked(x[None], cents[None], layout, precision)[0]
+
+
+def encode_bytes(rows: int, d: int, M: int, x_itemsize: int) -> int:
+    """Bytes one call must move at least: x read once, codes written once
+    (the codebooks are a few KB and not counted)."""
+    return rows * (d * x_itemsize + M)
+
+
+def encode_ops(rows: int, M: int, C: int, d_m: int) -> int:
+    """Operations of one call: per (row, subspace, centroid) d_m FMAs counted
+    as 2 each and one compare."""
+    return rows * M * C * (2 * d_m + 1)

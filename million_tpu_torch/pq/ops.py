@@ -4,9 +4,11 @@ PyTorch counterpart of million_tpu/pq/ops.py, with the same shape vocabulary:
   d    head dim; M subspaces; d_m = d // M; C codebook size;
   cents: (M, C, d_m) codebook tensor, one C-entry codebook per subspace.
 
-Encode is a batched matmul plus argmin, as XLA computes it in the reference
-package; it is not a custom kernel. Codes are uint8 (C <= 256); wider
-codebooks belong to a later slice of the port.
+`pq_encode` is a batched matmul plus argmin, as XLA computes it in the
+reference package: the oracle, and the plain version of the fused encode
+kernel (ops/pq_encode_kernel.py) that `runtime_encode` launches for CUDA
+tensors. Codes are uint8 (C <= 256); wider codebooks belong to a later slice
+of the port.
 """
 
 from __future__ import annotations
@@ -17,6 +19,12 @@ import torch
 # inputs to bf16 and accumulates in f32, the reference package's default;
 # "exact" keeps f32 inputs.
 RUNTIME_ENCODE_PRECISION = "fast"
+
+# Runtime encode implementation: the fused kernel, which never writes the
+# (rows, M, C) distances. The reference package keeps its fused TPU kernel
+# off because a k = d_m contraction wastes the MXU; on CUDA cores that reason
+# does not exist. CPU tensors take the kernel's plain version either way.
+RUNTIME_FUSED_ENCODE = True
 
 
 def subspace_view(x: torch.Tensor, M: int, layout: str = "contiguous") -> torch.Tensor:
@@ -117,7 +125,14 @@ def pq_encode_chunked(
 
 
 def runtime_encode(x: torch.Tensor, cents: torch.Tensor, layout: str = "contiguous") -> torch.Tensor:
-    """Encode used by prefill: chunked, at RUNTIME_ENCODE_PRECISION."""
+    """Encode of the prefill, flush and admission call sites, at
+    RUNTIME_ENCODE_PRECISION: x (..., d), cents (M, C, d_m) -> (..., M) uint8.
+    With RUNTIME_FUSED_ENCODE a CUDA tensor goes through the fused kernel; a
+    CPU tensor, or the switch off, through the chunked batched-GEMM encode."""
+    if RUNTIME_FUSED_ENCODE and x.device.type != "cpu":
+        from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused
+
+        return pq_encode_fused(x, cents, layout, precision=RUNTIME_ENCODE_PRECISION)
     return pq_encode_chunked(x, cents, layout, precision=RUNTIME_ENCODE_PRECISION)
 
 

@@ -18,6 +18,7 @@ import torch
 
 from million_tpu_torch import resolve_device
 from million_tpu_torch.models import llama
+from million_tpu_torch.models.chunked_prefill import chunked_prefill
 from million_tpu_torch.runtime.sampling import SamplingConfig, sample
 
 
@@ -89,10 +90,18 @@ def generate(
     sampling: SamplingConfig = SamplingConfig(),
     seed: int = 0,
     selfcheck_every: int = 0,
+    prefill_chunk: int = 0,  # > 0: admit the prompt in bounded-memory chunks
+    prefill_hist_block: int = 4096,  # history tokens the plain history route decodes at a time
     flush_chunk: int = 0,  # 0: flush the whole window; F < Lt: the oldest F rows
     device="cuda",
 ) -> Tuple[GenerationResult, Dict[str, Any]]:
     """Prefill + decode loop. Returns (result, the cache, updated in place).
+
+    prefill_chunk=N (PQ modes): the prompt is admitted N tokens at a time
+    (models/chunked_prefill.py); each chunk attends exactly within itself and
+    over the quantized history of the earlier chunks. prefill_hist_block
+    bounds the history transient where the history partial runs its plain
+    version (CPU tensors); the kernel on the card tiles the history itself.
 
     selfcheck_every=N (mode "pq_kernel"): every N decode steps the step first
     runs through the plain oracle (mode "pq") on the same cache, and the max
@@ -106,15 +115,21 @@ def generate(
         raise ValueError(f"flush_chunk={flush_chunk} must be a multiple of 4")
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
+    if prefill_chunk and mode == "dense":
+        raise ValueError("prefill_chunk requires a PQ mode (quantized history)")
     capacity_check(n_prompt, max_new_tokens, cache, mode, flush_chunk)
     gen = torch.Generator(device=dev).manual_seed(seed)
     clock = _Clock(dev)
 
     t0 = clock.mark()
-    logits = llama.prefill(params, cfg, input_ids, cache, cents,
-                           mode="dense" if mode == "dense" else "pq",
-                           last_logit_only=True)
-    tok = sample(logits[:, -1], gen, sampling)
+    if prefill_chunk:
+        last_logits, _ = chunked_prefill(params, cfg, input_ids, cache, cents,
+                                         chunk=prefill_chunk, hist_block=prefill_hist_block)
+    else:
+        last_logits = llama.prefill(params, cfg, input_ids, cache, cents,
+                                    mode="dense" if mode == "dense" else "pq",
+                                    last_logit_only=True)[:, -1]
+    tok = sample(last_logits, gen, sampling)
     t1 = clock.mark()
 
     toks = [tok]

@@ -1,0 +1,282 @@
+"""The port's chunk-history attention against million_tpu.
+
+On the CPU the wrappers (pq_chunk_attention, pq_chunk_history_attention) run
+the kernel's plain PyTorch version: an f32 online softmax over history blocks.
+It is held at atol 1e-5 against million_tpu's f32 block scan
+(chunked_prefill._history_partial, no outliers there) and against a numpy
+softmax oracle that includes the outlier terms, and at 5e-2 against the TPU
+kernel in interpret mode, which decodes with int8 tables and int8 q (the
+tolerance tests/test_pallas_kernel.py gives that kernel against an f32
+oracle). Tests marked `cuda` hold the CUDA kernel against the plain version
+on the card and skip without one."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from million_tpu.models.chunked_prefill import _history_partial as jax_history_partial
+from million_tpu.ops.pq_attention_pallas import (
+    pack_codes,
+    pack_decode_table,
+    pq_chunk_history_attention as jax_chunk_history,
+    to_byte_plane,
+)
+from million_tpu_torch import convert
+from million_tpu_torch.models.chunked_prefill import _history_partial
+from million_tpu_torch.ops import pq_chunk_attention_kernel as K
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def make_case(rng, *, bs=1, nh_k=2, G=2, nc=12, d=16, M=8, C=32, M_v=None, C_v=None,
+              O=0, N=128):
+    """Random inputs in million_tpu's layouts (codes subspace-major (.., M, N))
+    with outlier channels whose centroid components are 0."""
+    M_v, C_v = M_v or M, C_v or C
+    c = dict(
+        q=rng.standard_normal((bs, nh_k * G, nc, d)).astype(np.float32),
+        kc=rng.integers(0, C, (bs, nh_k, M, N)).astype(np.uint8),
+        vc=rng.integers(0, C_v, (bs, nh_k, M_v, N)).astype(np.uint8),
+        kcent=rng.standard_normal((M, C, d // M)).astype(np.float32),
+        vcent=rng.standard_normal((M_v, C_v, d // M_v)).astype(np.float32),
+    )
+    if O:
+        bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+        c["ko"] = bf(rng.standard_normal((bs, nh_k, N, O)) * 2)  # (.., N, O)
+        c["vo"] = bf(rng.standard_normal((bs, nh_k, N, O)) * 2)
+        c["koidx"] = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
+        c["voidx"] = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
+        for ch in c["koidx"]:
+            c["kcent"][ch % M, :, ch // M] = 0.0
+        for ch in c["voidx"]:
+            c["vcent"][ch % M_v, :, ch // M_v] = 0.0
+    return c
+
+
+def port_args(c, dev="cpu"):
+    """The port's arguments: the code arenas carried across from packed words."""
+    words_k = np.asarray(pack_codes(jnp.asarray(c["kc"])))
+    words_v = np.asarray(pack_codes(jnp.asarray(c["vc"])))
+    args = [_t(c["q"]), _t(convert.arena_from_words(words_k)), _t(convert.arena_from_words(words_v)),
+            _t(c["kcent"]), _t(c["vcent"])]
+    kw = {}
+    if "ko" in c:
+        kw = dict(koidx=_t(c["koidx"]), k_outliers=_t(c["ko"]).bfloat16(),
+                  voidx=_t(c["voidx"]), v_outliers=_t(c["vo"]).bfloat16())
+    return [a.to(dev) for a in args], {k: v.to(dev) for k, v in kw.items()}
+
+
+def numpy_oracle(c, n_prev, scale):
+    """Softmax attention over the decoded first n_prev tokens, outlier terms
+    included. Returns (out (bs, nh, nc, d), lse (bs, nh, nc))."""
+    bs, nh, nc, d = c["q"].shape
+    nh_k = c["kc"].shape[1]
+    G = nh // nh_k
+
+    def decode(codes, cent):  # (bs, nh_k, M, N) -> (bs, nh_k, n_prev, d), strided split
+        M = cent.shape[0]
+        g = cent[np.arange(M)[:, None], codes[..., :n_prev]]  # (bs, nh_k, M, n, d_m)
+        return np.moveaxis(g, -1, 2).reshape(bs, nh_k, d, n_prev).swapaxes(-1, -2)
+
+    khat, vhat = decode(c["kc"], c["kcent"]), decode(c["vc"], c["vcent"])
+    if "vo" in c:
+        vhat = vhat.copy()
+        vhat[..., c["voidx"]] = c["vo"][:, :, :n_prev]
+    qs = (c["q"] * scale).reshape(bs, nh_k, G, nc, d)
+    s = np.einsum("bhgqd,bhnd->bhgqn", qs, khat)
+    if "ko" in c:
+        s = s + np.einsum("bhgqo,bhno->bhgqn", qs[..., c["koidx"]], c["ko"][:, :, :n_prev])
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    out = np.einsum("bhgqn,bhnd->bhgqd", p / l, vhat)
+    return out.reshape(bs, nh, nc, d), (m + np.log(l))[..., 0].reshape(bs, nh, nc)
+
+
+@pytest.mark.parametrize("n_prev", [37, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4])
+def test_plain_matches_jax_history_partial(rng, G, n_prev):
+    c = make_case(rng, G=G)
+    d = c["q"].shape[-1]
+    scale = 1.0 / d**0.5
+    args, _ = port_args(c)
+    out, lse = K.pq_chunk_history_attention(*args, n_prev, scale)
+    want_out, want_lse = jax_history_partial(
+        jnp.asarray(c["q"]), pack_codes(jnp.asarray(c["kc"])), pack_codes(jnp.asarray(c["vc"])),
+        jnp.asarray(c["kcent"]), jnp.asarray(c["vcent"]), jnp.asarray(n_prev), scale,
+        nb=4, hist_block=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
+    # the plain history route of chunked_prefill is the same function, blockwise
+    out_b, lse_b = _history_partial(*args, n_prev, scale, hist_block=16)
+    np.testing.assert_allclose(out_b.numpy(), out.numpy(), atol=1e-6)
+    np.testing.assert_allclose(lse_b.numpy(), lse.numpy(), atol=1e-6)
+
+
+GEOMETRIES = {
+    "dm2": dict(M=8, C=32),
+    "dm4_outliers": dict(M=4, C=64, O=4),
+    "asym_Mv4_outliers": dict(M=8, C=32, M_v=4, C_v=64, O=2),
+}
+
+
+@pytest.mark.parametrize("n_prev", [5, 100])
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES))
+def test_plain_matches_numpy_oracle(rng, geom, n_prev):
+    c = make_case(rng, G=3, nc=7, **GEOMETRIES[geom])
+    scale = 1.0 / c["q"].shape[-1] ** 0.5
+    args, kw = port_args(c)
+    want_out, want_lse = numpy_oracle(c, n_prev, scale)
+    for hist_block in (1024, 32):
+        out, lse = _history_partial(*args, n_prev, scale, hist_block=hist_block, **kw)
+        np.testing.assert_allclose(out.numpy(), want_out, atol=1e-5)
+        np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5)
+    out, lse = K.pq_chunk_history_attention(*args, n_prev, scale, **kw)
+    np.testing.assert_allclose(out.numpy(), want_out, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5)
+
+
+def test_empty_history(rng):
+    c = make_case(rng, O=4, M=4, C=64)
+    args, kw = port_args(c)
+    out, lse = K.pq_chunk_history_attention(*args, 0, 0.25, **kw)
+    assert out.shape == c["q"].shape and (out.numpy() == 0).all()
+    assert (lse.numpy() == -1e30).all()
+
+
+def test_grouping_round_trip(rng):
+    q = _t(rng.standard_normal((2, 6, 5, 8)).astype(np.float32))
+    rows = K.group_rows(q, 2, 0.5)
+    assert rows.shape == (2, 2, 15, 8)
+    np.testing.assert_array_equal(rows[1, 1, 3 * 4 + 2].numpy(), (q[1, 3 + 2, 4] * 0.5).numpy())
+    out, lse = K.ungroup_rows(rows, rows[..., 0], 6)
+    np.testing.assert_array_equal(out.numpy(), (q * 0.5).numpy())
+    np.testing.assert_array_equal(lse.numpy(), (q[..., 0] * 0.5).numpy())
+
+
+def test_plain_matches_tpu_kernel_interpret(rng):
+    """Loose parity with the TPU kernel itself, outlier terms included."""
+    c = make_case(rng, G=2, nc=24, d=32, M=16, C=256, O=4, N=512)
+    n_prev, scale = 384, 1.0 / 32**0.5
+    out_j, lse_j = jax_chunk_history(
+        jnp.asarray(c["q"]), pack_codes(jnp.asarray(c["kc"])), pack_codes(jnp.asarray(c["vc"])),
+        pack_decode_table(jnp.asarray(c["kcent"])), pack_decode_table(jnp.asarray(c["vcent"])),
+        jnp.asarray(n_prev, jnp.int32), scale, block=128, q_block=16, interpret=True,
+        koidx=jnp.asarray(c["koidx"]), voidx=jnp.asarray(c["voidx"]),
+        k_outliers=to_byte_plane(jnp.asarray(np.swapaxes(c["ko"], -1, -2), jnp.bfloat16)),
+        v_outliers=to_byte_plane(jnp.asarray(np.swapaxes(c["vo"], -1, -2), jnp.bfloat16)),
+    )
+    args, kw = port_args(c)
+    out, lse = K.pq_chunk_history_attention(*args, n_prev, scale, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=0.05, atol=0.05)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), rtol=0.05, atol=0.05)
+
+
+def test_bf16_precision_rounds_inputs_only(rng):
+    """precision "bf16" (what the tensor-core kernel computes) rounds q, the
+    codebooks and the P V weights to bf16 and keeps f32 sums: within 3e-2 of
+    the f32 result, equal to it on inputs that bf16 holds exactly up to the
+    rounding of the weights, and what 16-bit queries get by default."""
+    c = make_case(rng, G=3, nc=9, M=4, C=64, O=4)
+    args, kw = port_args(c)
+    f32 = K.pq_chunk_history_attention(*args, 100, 0.25, **kw)
+    bf = K.pq_chunk_history_attention(*args, 100, 0.25, precision="bf16", **kw)
+    for a, b in zip(bf, f32):
+        assert 0 < float((a - b).abs().max()) < 3e-2
+    auto = K.pq_chunk_history_attention(args[0].bfloat16(), *args[1:], 100, 0.25, **kw)
+    rounded = K.pq_chunk_history_attention(args[0].bfloat16().float(), *args[1:], 100, 0.25,
+                                           precision="bf16", **kw)
+    for a, b in zip(auto, rounded):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert K.history_precision(args[0]) == "f32" and K.history_precision(args[0].half()) == "bf16"
+    with pytest.raises(ValueError, match="precision"):
+        K.pq_chunk_history_attention(*args, 100, 0.25, precision="fp8", **kw)
+
+
+def test_wrapper_rejects(rng):
+    c = make_case(rng, O=4, M=4, C=64)
+    args, kw = port_args(c)
+    rows = K.group_rows(args[0], 2, 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.pq_chunk_attention(rows.to("meta"), *args[1:], 8)
+    with pytest.raises(ValueError, match="go together"):
+        K.pq_chunk_attention(rows, *args[1:], 8, k_outliers=kw["k_outliers"])
+
+
+def test_bound_counts():
+    assert K.chunk_ops(4, 8, 12288, 128, 28672, 16) == 2 * 32 * 12288 * 28672 * 272
+    assert K.chunk_bytes(1, 1, 10, 128, 100, 64, 64) == 10 * 257 * 4 + 100 * 128
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+CUDA_CASES = {
+    "dm2_G3": dict(G=3, nc=100, d=128, M=64, C=256, N=1024),
+    "dm4_c128_outliers_G3": dict(G=3, nc=171, d=128, M=32, C=128, O=16, N=1024),
+    "asym_G4": dict(G=4, nc=64, d=128, M=64, C=256, M_v=32, C_v=128, O=16, N=512),
+    "d64_G8": dict(G=8, nc=40, d=64, M=32, C=256, N=512),
+    "test_tiny_G2": dict(G=2, nc=16, d=16, M=4, C=64, O=4, N=128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_cuda_kernel_matches_plain(rng, cuda_device, case):
+    """Ragged query tiles, ragged and empty histories, every geometry: f32
+    kernel against f32 plain version, only the summation order differs."""
+    c = make_case(rng, bs=2, **CUDA_CASES[case])
+    N = c["kc"].shape[-1]
+    scale = 1.0 / c["q"].shape[-1] ** 0.5
+    args, kw = port_args(c)
+    dargs, dkw = port_args(c, cuda_device)
+    for n_prev in (0, 1, 127, 128, N - 3, N):
+        want = K.pq_chunk_history_attention(*args, n_prev, scale, **kw)
+        before = K.pq_chunk_attention.launches
+        got = K.pq_chunk_history_attention(*dargs, n_prev, scale, **dkw)
+        torch.cuda.synchronize()
+        assert K.pq_chunk_attention.launches == before + 1
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4, err_msg=f"n_prev={n_prev}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_cuda_tensor_core_kernel_matches_plain(rng, cuda_device, case):
+    """The bf16 tensor-core version against the plain version that rounds at
+    the same places: 2e-3 on outputs of order 0.1 to 4, because the two round
+    the softmax weights against different running maxima (a 64-token tile
+    there, a 1024-token block here); and within 2e-2 of the f32 result (one
+    bf16 step of a V component of 4 is 1.6e-2)."""
+    c = make_case(rng, bs=2, **CUDA_CASES[case])
+    N = c["kc"].shape[-1]
+    scale = 1.0 / c["q"].shape[-1] ** 0.5
+    args, kw = port_args(c)
+    dargs, dkw = port_args(c, cuda_device)
+    for n_prev in (0, 1, 63, 64, N - 3, N):
+        want = K.pq_chunk_history_attention(*args, n_prev, scale, precision="bf16", **kw)
+        exact = K.pq_chunk_history_attention(*args, n_prev, scale, **kw)
+        before = K.pq_chunk_attention.launches
+        got = K.pq_chunk_history_attention(*dargs, n_prev, scale, precision="bf16", **dkw)
+        torch.cuda.synchronize()
+        assert K.pq_chunk_attention.launches == before + 1
+        for g, w, e in zip(got, want, exact):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=2e-3, err_msg=f"n_prev={n_prev}")
+            np.testing.assert_allclose(g.cpu().numpy(), e.numpy(), atol=2e-2, err_msg=f"n_prev={n_prev}")
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_kernel_rejects(rng, cuda_device):
+    c = make_case(rng, G=2, nc=8, d=32, M=8, C=32, N=128)
+    dargs, _ = port_args(c, cuda_device)
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        K.pq_chunk_history_attention(*dargs, 64, 0.2, precision="bf16")
+    out, _ = K.pq_chunk_history_attention(*dargs, 64, 0.2)  # the f32 kernel takes d = 32
+    assert out.shape == c["q"].shape
