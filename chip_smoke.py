@@ -7,7 +7,7 @@
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of the three CUDA sources of million_tpu_torch/csrc with nvcc,
+  2. the build of the four CUDA sources of million_tpu_torch/csrc with nvcc,
      one nvcc each, started together;
   3. every kernel against its plain PyTorch version on the card at the main
      paths' shapes (llama-3.2-3b: G=3, d=128, 8 KV heads, batch 4), with its
@@ -25,6 +25,11 @@ result line:
        over 28,672 history tokens in dm2 and dm4_outlier_c128, in both
        precisions (f32, and the bf16 tensor-core version the 16-bit model
        takes); dense bf16 SDPA over the same lengths as a yardstick;
+     - pq_paged_attention at the serving shape (6 slots, 2048-token pages, 104
+       + scratch, shuffled 17-entry tables, a bf16 residual window per slot)
+       in the three geometries: ragged lengths with -1 table tails and an
+       empty slot, six full slots of 32,640 tokens (timed), the single-layer
+       entry, and the pages-per-block mode at 2 and 4 pages;
   4. the main paths, at the full width of llama-3.2-3b (28 layers, random
      weights from a seed, bench.py's synthetic codebooks), 4 requests of
      32,000-token prompts, in mode "pq_kernel" for dm2 and dm4_outlier_c128:
@@ -38,8 +43,18 @@ result line:
        (chunks - 1), encode kernel = 2 x layers x chunks); the last chunk's
        logits through the kernel against the plain history route on the
        same cache;
-     a test-tiny generate, flat and chunked, on the card against the CPU;
-     dense-mode TTFT and TPOT beside;
+     - the serving path: a Scheduler with 6 slots over the paged cache, six
+       requests of 32,640-token prompts and 272 new tokens submitted together
+       (one group admission in 64 chunks of 512 through the chunk-history and
+       encode kernels, the decode ticks through the paged kernel, two window
+       flushes and one page growth per slot), with the admission wall, the
+       per-token tick p50 / p90, the flush steps, tokens/s, peak memory, the
+       launch counts (paged kernel = layers x dispatched ticks) and any host
+       wait inside step(); one teacher-forced paged step mid-window and one
+       right after a flush, kernel against plain version on the same state;
+     a test-tiny generate, flat and chunked, and a test-tiny Scheduler with a
+     forced preemption, on the card against the CPU; dense-mode TTFT and TPOT
+     beside;
   5. a JSON line of the kernels, then the card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
@@ -54,6 +69,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 BS, PROMPT, N_MAX, NEW_TOKENS, FLUSH = 4, 32000, 32768, 160, 16
 CHUNK, CHUNK_NEW_TOKENS = 4096, 17  # the chunked path: 8 chunks, 16 decode steps
+# the serving path: six slots of 32,640-token prompts in 2048-token pages, 272 new tokens each
+# (two window flushes per slot; the second crosses 16 x 2048 and grows a 17th page)
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW_TOKENS = 6, 32640, 272
+PAGE_SIZE, PAGES_PER_SEQ, POOL_PAGES = 2048, 17, 104
 N_PREV = N_MAX - CHUNK  # kernel phase: the longest history a 32K arena gives a chunk
 N_CODES = N_MAX - 512  # kernel phase: the arena fill of bench.py's decode
 RESIDUAL_ROWS = 97  # kernel phase: live rows of the 128-row residual window
@@ -62,6 +81,9 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 ENCODE_AGREE, ENCODE_MSE_RTOL = 0.999, 1e-4  # kernel vs plain: ties may flip on summation order
 KERNEL_TOL = 1e-3  # f32 decode kernel vs f32 plain version: only summation order differs
+# the paged kernel vs its plain version (f32, the same splits, only summation order differs):
+# 10x what an H100 measured, out 3.6e-7 and lse 9.5e-7 (one f32 step at ~10)
+PAGED_TOL = 1e-5
 # pq_chunk_attention vs its plain version. Over 28,672 near-uniformly weighted tokens `out` is
 # small (rms ~ 0.07, max ~ 0.2) while `lse` is ~ 10, so each has its own limit, 10x what an
 # H100 measured: `out` 2.1e-6 (f32) and 5.2e-5 (bf16), `lse` 1.9e-6 (two f32 steps at 10).
@@ -86,6 +108,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            "million_tpu/ops/pq_attention_pallas.py:1068"),
     "pq_encode": ("million_tpu_torch/csrc/pq_encode.cu",
                   "million_tpu/ops/pq_encode_pallas.py:84"),
+    # one kernel for the stacked entry (:1706), the single-layer entry (:1348, a
+    # one-layer view) and the pages-per-block mode (:1540, `kpp`)
+    "pq_paged_attention": ("million_tpu_torch/csrc/pq_paged_attention.cu",
+                           "million_tpu/ops/pq_attention_pallas.py:1706 (and :1348, :1540)"),
 }
 PATH_GEOMETRIES = ("dm2", "dm4_outlier_c128")
 
@@ -402,6 +428,117 @@ def chunk_phase(dev):
     return rows
 
 
+def paged_phase(dev):
+    """pq_paged_attention vs its plain version at the serving shape: ragged
+    lengths with -1 table tails and an empty slot, full slots (timed), the
+    single-layer entry and the pages-per-block mode."""
+    import torch
+    import torch.nn.functional as F
+
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.ops import pq_paged_attention_kernel as P
+
+    nh_k, G, d, L, layer = 8, 3, 128, 2, 1
+    S, ps, pps, n_pages, Lt = SERVE_SLOTS, PAGE_SIZE, PAGES_PER_SEQ, POOL_PAGES, 128
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ragged = [SERVE_PROMPT, SERVE_PROMPT, 20004, 8192, 516, 0]
+    rows_ragged = [97, 128, 1, 33, 5, 0]
+    full = [SERVE_PROMPT] * S
+    n_bound = 16 * ps  # the scheduler's bound before the slots grow a 17th page
+    rows = {}
+    for geom in GEOMETRIES:
+        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+        cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=9), device=dev)
+        q = torch.randn((S, nh_k, G, d), generator=gen, device=dev) / d**0.5
+        kp = torch.randint(0, C, (L, n_pages + 1, nh_k, ps, M), generator=gen, device=dev, dtype=torch.uint8)
+        vp = torch.randint(0, C, (L, n_pages + 1, nh_k, ps, M), generator=gen, device=dev, dtype=torch.uint8)
+        okw = dict(k_residual=torch.randn((L, S, nh_k, Lt, d), generator=gen, device=dev).bfloat16(),
+                   v_residual=torch.randn((L, S, nh_k, Lt, d), generator=gen, device=dev).bfloat16())
+        if O:
+            okw.update(
+                k_outliers=torch.randn((L, n_pages + 1, nh_k, ps, O), generator=gen, device=dev).bfloat16(),
+                v_outliers=torch.randn((L, n_pages + 1, nh_k, ps, O), generator=gen, device=dev).bfloat16(),
+                k_oidx=cents["k_outlier_idx"], v_oidx=cents["v_outlier_idx"])
+        perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(10))[: S * pps]
+
+        def table_for(lens):  # shuffled page ids, -1 past each sequence's pages
+            t = perm.reshape(S, pps).clone().to(torch.int32)
+            for b, n in enumerate(lens):
+                t[b, -(-n // ps):] = -1
+            return t.to(dev)
+
+        def case(lens, live_rows):
+            return (table_for(lens), torch.tensor(lens, dtype=torch.int32, device=dev),
+                    torch.tensor(live_rows, dtype=torch.int32, device=dev))
+
+        def run(fn, c, **kw):
+            table, n_codes, r = c
+            return fn(q, kp, vp, cents["key"], cents["value"], layer, table, n_codes,
+                      n_bound=n_bound, r=r, **okw, **kw)
+
+        def compare(what, got, want, tol=PAGED_TOL):
+            err_out = float((got[0] - want[0]).abs().max())
+            err_lse = float((got[1] - want[1]).abs().max())
+            ok = bool(torch.isfinite(got[0]).all()) and max(err_out, err_lse) <= tol
+            log(f"[kernel] pq_paged_attention {geom:17s} {what}: out_err={err_out:.3g} "
+                f"lse_err={err_lse:.3g} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"pq_paged_attention disagrees with its plain version ({geom}, {what})")
+            return max(err_out, err_lse)
+
+        # (a) ragged lengths, -1 tails, an empty slot without residual rows
+        c_rag = case(ragged, rows_ragged)
+        got = run(P.pq_paged_attention_stacked, c_rag)
+        torch.cuda.synchronize()
+        err = compare(f"ragged n_codes={ragged} r={rows_ragged}", got,
+                      run(P.pq_paged_attention_plain, c_rag, n_sm=n_sm))
+        empty_ok = bool((got[0][-1] == 0).all()) and bool((got[1][-1] == -1e30).all())
+        log(f"[kernel] pq_paged_attention {geom:17s} empty slot: out == 0 and lse == -1e30: {empty_ok}")
+        if not empty_ok:
+            raise RuntimeError(f"pq_paged_attention: the empty slot is not (0, -1e30) ({geom})")
+        # (b) six full slots
+        c_full = case(full, [RESIDUAL_ROWS] * S)
+        got_full = run(P.pq_paged_attention_stacked, c_full)
+        plain_full = run(P.pq_paged_attention_plain, c_full, n_sm=n_sm)
+        err = max(err, compare(f"full {S} x {SERVE_PROMPT}", got_full, plain_full))
+        # (c) the single-layer entry
+        one = {k: v[layer] for k, v in okw.items()}
+        got_one = P.pq_paged_attention(q, kp[layer], vp[layer], cents["key"][layer], cents["value"][layer],
+                                       c_full[0], c_full[1], n_bound=n_bound, r=c_full[2], **one)
+        err = max(err, compare("single-layer entry", got_one, plain_full))
+        # (d) the pages-per-block mode: against its own plain version and the default mode
+        kpp_ms = {}
+        for kpp in (2, 4):
+            got_k = run(P.pq_paged_attention_stacked_mp, c_rag, kpp=kpp)
+            err = max(err, compare(f"kpp={kpp} ragged vs plain(kpp)", got_k,
+                                   run(P.pq_paged_attention_plain, c_rag, n_sm=n_sm, kpp=kpp)))
+            compare(f"kpp={kpp} ragged vs the default mode", got_k, got)
+            kpp_ms[kpp] = cuda_ms(lambda: run(P.pq_paged_attention_stacked_mp, c_full, kpp=kpp), 50)
+        ms = cuda_ms(lambda: run(P.pq_paged_attention_stacked, c_full), 50)
+        ms_rag = cuda_ms(lambda: run(P.pq_paged_attention_stacked, c_rag), 50)
+        plain_ms = cuda_ms(lambda: run(P.pq_paged_attention_plain, c_full, n_sm=n_sm), 3, warm=1)
+        nbytes = (P.paged_bytes(full, nh_k, M, M, O, O)
+                  + 2 * S * nh_k * RESIDUAL_ROWS * d * 2  # live residual rows, bf16
+                  + 2 * C * d * 4 + 2 * q.numel() * 4 + S * nh_k * G * 4 + S * pps * 4 + 2 * S * 4)
+        flops = P.paged_flops([n + RESIDUAL_ROWS for n in full], nh_k, G, d, O)
+        bound_ms, bound_by = bound_of(nbytes, flops, F32_OPS_PER_S)
+        # dense bf16 attention over the same lengths: a yardstick, not the same function
+        qd = torch.randn((S, nh_k * G, 1, d), generator=gen, device=dev).bfloat16()
+        kd = torch.randn((S, nh_k, SERVE_PROMPT, d), generator=gen, device=dev).bfloat16()
+        vd = torch.randn((S, nh_k, SERVE_PROMPT, d), generator=gen, device=dev).bfloat16()
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True), 50)
+        rows[geom] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=err, library_ms=None)
+        log(f"[kernel] pq_paged_attention {geom:17s} full {S} x {SERVE_PROMPT}: kernel={ms:.4f} ms "
+            f"(kpp=2 {kpp_ms[2]:.4f}, kpp=4 {kpp_ms[4]:.4f}; ragged {ms_rag:.4f}) bound={bound_ms:.4f} ms "
+            f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) plain={plain_ms:.3f} ms "
+            f"dense_bf16_sdpa={sdpa_ms:.4f} ms")
+        del kp, vp, okw, kd, vd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tiny_check(dev):
     """Small input: test-tiny generate on the card (kernel) vs on the CPU
     (the kernel's plain version) must give the same greedy tokens."""
@@ -437,10 +574,220 @@ def tiny_check(dev):
             raise RuntimeError(f"test-tiny tokens differ ({what}): {toks}")
 
 
-def main_path(dev):
+def tiny_serving_check(dev):
+    """Small input: the tiny Scheduler of the tests (f32, two slots, a pool
+    small enough to force a preemption) serves four requests of different
+    lengths on the card (paged kernel) and on the CPU (its plain version):
+    the greedy tokens of every request must be equal."""
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.models.llama import PRESETS, init_params
+    from million_tpu_torch.runtime.scheduler import Request, Scheduler
+
+    cfg = PRESETS["test-tiny"]
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_dev = {k: (v.to(dev) if k != "layers" else {a: b.to(dev) for a, b in v.items()})
+             for k, v in p_cpu.items()}
+    rng = np.random.default_rng(11)
+    c = {"key": rng.standard_normal((2, 4, 64, 4)).astype(np.float32),
+         "value": rng.standard_normal((2, 4, 64, 4)).astype(np.float32),
+         "k_outlier_idx": np.array([[1, 5, 9, 12]] * 2, np.int32),
+         "v_outlier_idx": np.array([[0, 3, 7, 14]] * 2, np.int32)}
+    for side, idx in (("key", c["k_outlier_idx"][0]), ("value", c["v_outlier_idx"][0])):
+        for ch in idx:
+            c[side][:, ch % 4, :, ch // 4] = 0.0
+    pcfg = PagedPQCacheConfig(num_layers=2, nh_k=2, d=16, M=4, C=64, Lt=8, page_size=256, n_pages=3,
+                              max_seqs=2, pages_per_seq=3, dtype=torch.float32, OK=4, OV=4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (200, 180, 30, 300)]
+    out = {}
+    for d, params in (("cpu", p_cpu), (dev, p_dev)):
+        sched = Scheduler(params, cfg, pcfg, cents_from_numpy(c, device=d), admit_chunk=128, device=d)
+        for rid, pr in enumerate(prompts):
+            sched.submit(Request(rid, pr, 100 if rid < 2 else 20))
+        done = sched.run_to_completion(max_ticks=2000)
+        out[str(d)] = ({f.rid: f.tokens for f in done}, sched.preemptions,
+                       int(sched.state["used"].sum()))
+    (t_cpu, pre_cpu, used_cpu), (t_dev, pre_dev, used_dev) = out["cpu"], out[str(dev)]
+    same = set(t_cpu) == set(t_dev) == {0, 1, 2, 3} and all(
+        np.array_equal(t_cpu[r], t_dev[r]) for r in t_cpu)
+    log(f"[tiny] test-tiny serving (2 slots, 3 pages of 256, requests of 200/180/30/300 tokens, group, "
+        f"chunked and one-shot admission): card vs cpu greedy tokens equal: {same}; preemptions cpu {pre_cpu} "
+        f"card {pre_dev}; pages in use at the end {used_cpu} / {used_dev}")
+    if not same or pre_cpu < 1 or pre_dev < 1 or used_cpu or used_dev:
+        raise RuntimeError(f"test-tiny serving check failed: {t_cpu} vs {t_dev}")
+
+
+def serving_path(dev, cfg, params, launches):
+    """Continuous-batching serving at full llama-3.2-3b width: six requests
+    of 32,640-token prompts and 272 new tokens each through Scheduler.submit /
+    step (one group admission through the chunk-history and encode kernels,
+    the decode ticks through the paged kernel, two window flushes and one
+    page growth per slot), with a teacher-forced step through the kernel
+    against the same step through its plain version, mid-run and right
+    after a flush."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.models.paged_decode import flush_paged_slots, paged_decode_step
+    from million_tpu_torch.runtime.scheduler import Request, Scheduler
+
+    wrappers = path_wrappers()
+    L, d = cfg.num_layers, cfg.head_dim
+    S, Lt = SERVE_SLOTS, 128
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT) for _ in range(S)]
+
+    def teacher_forced(sched, flush_first):
+        """One decode step from the live state through the kernel and through
+        its plain version; the state and the launch counts are put back."""
+        sched.drain()
+        st = sched.state
+        counts = {k: w.launches for k, w in wrappers.items()}
+        saved = {k: st[k].clone() for k in ("seq_n_codes", "seq_r")}
+        row0 = {k: st[k][:, :, :, 0].clone() for k in ("key_residual", "value_residual")}
+        if flush_first:  # what the scheduler's next step will do first (and do again: same codes)
+            flush_paged_slots(sched.pcfg, st, sched.tables, torch.ones(S, dtype=torch.bool))
+        r0 = st["seq_r"].clone()
+        n_bound = int(sched.slot_pages.max()) * sched.pcfg.page_size
+        logits = []
+        for use_kernel in (None, False):
+            st["seq_r"].copy_(r0)
+            logits.append(paged_decode_step(params, cfg, sched.pcfg, sched.last_token, None, st,
+                                            sched.tables, n_bound=n_bound, use_kernel=use_kernel))
+        for k, v in saved.items():
+            st[k].copy_(v)
+        for k, v in row0.items():
+            st[k][:, :, :, 0] = v
+        for k, w in wrappers.items():
+            w.launches = counts[k]
+        if not torch.isfinite(logits[0]).all():
+            raise RuntimeError("non-finite logits")
+        return float((logits[0] - logits[1]).abs().max())
+
+    for geom in PATH_GEOMETRIES:
+        g = GEOMETRIES[geom]
+        cents = cents_from_numpy(synthetic_cents(L, d, geom), device=dev)
+        pcfg = PagedPQCacheConfig(num_layers=L, nh_k=cfg.num_kv_heads, d=d, M=g["M"], C=g["C"], Lt=Lt,
+                                  page_size=PAGE_SIZE, n_pages=POOL_PAGES, max_seqs=S,
+                                  pages_per_seq=PAGES_PER_SEQ, OK=g["O"], OV=g["O"])
+        sched = Scheduler(params, cfg, pcfg, cents, admit_chunk=2048, admit_batch=8, tick_chain=8,
+                          device=dev)
+        pool_gb = sum(v.numel() * v.element_size() for k, v in sched.state.items() if "pool" in k) / 1e9
+        for rid, pr in enumerate(prompts):
+            sched.submit(Request(rid, pr, SERVE_NEW_TOKENS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        sched.step()  # admits all six as one group, then the first chain of decode ticks
+        torch.cuda.synchronize()
+        admit_wall = time.perf_counter() - t0
+        admit_ticks = sched.ticks_dispatched
+        admitted = sum(r is not None for r in sched.slot_req)
+        # steady decode: step() never waits for the device beyond its pipelined token
+        # readback, so the wall between steps is the tick time; a stray sync would warn
+        ticks, flush_ticks, gaps, n_tok, max_pages, flush_steps = [], [], {}, 0, 0, 0
+        sync_warnings = {}
+        T0 = time.perf_counter()
+        while any(r is not None for r in sched.slot_req):
+            will_flush = any(sched.slot_r[i] >= Lt for i, r in enumerate(sched.slot_req) if r is not None)
+            if will_flush and "after a flush" not in gaps:
+                gaps["after a flush"] = teacher_forced(sched, flush_first=True)
+            elif sched.ticks_dispatched >= 64 and "mid-window" not in gaps:
+                gaps["mid-window"] = teacher_forced(sched, flush_first=False)
+            before = sched.ticks_dispatched
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t1 = time.perf_counter()
+                sent = sched.step()
+                dt = time.perf_counter() - t1
+            torch.cuda.set_sync_debug_mode("default")
+            for w in caught:
+                key = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"  # where the waiting call was made
+                sync_warnings[key] = sync_warnings.get(key, 0) + 1
+            k = sched.ticks_dispatched - before
+            n_tok += sent
+            flush_steps += will_flush
+            max_pages = max(max_pages, int(sched.slot_pages.max()))
+            (flush_ticks if will_flush else ticks).append(dt / max(k, 1))
+        sched.drain()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - T0
+        for k, w in wrappers.items():
+            launches[k][geom]["serving"] = w.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stats = sched.stats()
+        done = {f.rid: f.tokens for f in sched.finished}
+        n_chunks = -(-SERVE_PROMPT // 512)  # six slots halve the 2048-token chunk twice
+        got = {k: launches[k][geom]["serving"] for k in wrappers}
+        want = {"pq_decode_attention": 0, "pq_chunk_attention": L * (n_chunks - 1),
+                "pq_encode": 2 * L * n_chunks + 2 * flush_steps,
+                "pq_paged_attention": L * sched.ticks_dispatched}
+        tokens_ok = set(done) == set(range(S)) and all(
+            len(t) == SERVE_NEW_TOKENS and ((0 <= t) & (t < cfg.vocab_size)).all() for t in done.values())
+        per_tok = np.asarray(ticks) * 1e3
+        log(f"[serving] {geom}: admitted {admitted}/{S} x {SERVE_PROMPT}-token prompts in "
+            f"{admit_wall:.3f} s (with the first {admit_ticks} decode ticks); per-token tick p50 "
+            f"{np.percentile(per_tok, 50):.3f} ms p90 {np.percentile(per_tok, 90):.3f} ms over "
+            f"{len(ticks)} steps of up to 8 chained ticks (host clock, un-synced steps); flush steps "
+            f"{[round(x * 1e3, 3) for x in flush_ticks]} ms per token; {n_tok / total:.1f} tok/s over "
+            f"{n_tok} tokens in {total:.3f} s (the two teacher-forced checks included); decode ticks "
+            f"dispatched {sched.ticks_dispatched} (needed {SERVE_NEW_TOKENS - 1}); launches={got} "
+            f"(want {want}); peak mem {peak:.2f} GB (pools {pool_gb:.2f} GB); preemptions "
+            f"{sched.preemptions}; most pages per slot {max_pages}; page-table errors "
+            f"{stats['page_table_errors']}, pages in use at the end {stats['pages_used']}; "
+            f"sync warnings inside step(): {sync_warnings or 'none'}")
+        log(f"[teacher] {geom} serving: max |logit(kernel) - logit(plain)| of one paged decode step "
+            f"{ {k: '%.4g' % v for k, v in gaps.items()} } (tol {LOGIT_TOL})")
+        if (got != want or not tokens_ok or admitted != S or sched.preemptions or max_pages != PAGES_PER_SEQ
+                or flush_steps < 2 or stats["pages_used"] or set(gaps) != {"after a flush", "mid-window"}
+                or max(gaps.values()) > LOGIT_TOL):
+            raise RuntimeError(f"serving path check failed for {geom}")
+        del sched
+        torch.cuda.empty_cache()
+
+
+def build_model(dev):
+    """llama-3.2-3b at full width and depth, random bf16 weights from seed 0."""
+    import torch
+
+    from million_tpu_torch.models import llama
+
+    cfg = llama.PRESETS["llama-3.2-3b"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for v in params["layers"].values()) + params["embed"].numel()
+    log(f"[model] llama-3.2-3b random bf16 weights: {n_par / 1e9:.3f} B params, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def path_wrappers():
+    """name -> the wrapper whose `launches` counts that kernel's launches."""
+    from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention_stacked
+    from million_tpu_torch.ops.pq_chunk_attention_kernel import pq_chunk_attention
+    from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
+    from million_tpu_torch.ops.pq_paged_attention_kernel import pq_paged_attention_stacked
+
+    return {"pq_decode_attention": pq_codes_attention_stacked,
+            "pq_chunk_attention": pq_chunk_attention, "pq_encode": pq_encode_fused_stacked,
+            "pq_paged_attention": pq_paged_attention_stacked}
+
+
+def main_path(dev, cfg, params, launches):
     """generate() at full llama-3.2-3b width through the kernels: the flat
-    path, then the chunked-prefill path. Returns the launches of every
-    kernel on every path: {kernel: {geometry: {path: n}}}."""
+    path, then the chunked-prefill path. Adds the launches of every kernel
+    on both paths to `launches`: {kernel: {geometry: {path: n}}}."""
     import torch
 
     from million_tpu_torch.cache.dense_cache import DenseCacheConfig, init_dense_state
@@ -448,24 +795,12 @@ def main_path(dev):
     from million_tpu_torch.convert import cents_from_numpy
     from million_tpu_torch.models import llama
     from million_tpu_torch.models.chunked_prefill import _prefill_one_chunk
-    from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention_stacked
-    from million_tpu_torch.ops.pq_chunk_attention_kernel import pq_chunk_attention
-    from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
     from million_tpu_torch.runtime.generate import generate
 
-    wrappers = {"pq_decode_attention": pq_codes_attention_stacked,
-                "pq_chunk_attention": pq_chunk_attention, "pq_encode": pq_encode_fused_stacked}
-    cfg = llama.PRESETS["llama-3.2-3b"]
+    wrappers = path_wrappers()
     L, d = cfg.num_layers, cfg.head_dim
-    t0 = time.perf_counter()
-    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    n_par = sum(v.numel() for v in params["layers"].values()) + params["embed"].numel()
-    log(f"[model] llama-3.2-3b random bf16 weights: {n_par / 1e9:.3f} B params, "
-        f"init {time.perf_counter() - t0:.1f} s")
     ids = torch.randint(0, cfg.vocab_size, (BS, PROMPT), generator=torch.Generator(device=dev).manual_seed(1),
                         device=dev)
-    launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in wrappers}
     n_chunks = -(-PROMPT // CHUNK)
 
     def drive(geom, path, cache, cents, **kw):
@@ -494,7 +829,7 @@ def main_path(dev):
         res, peak = drive(geom, "flat", cache, cents, max_new_tokens=NEW_TOKENS, flush_chunk=FLUSH)
         got = {k: launches[k][geom]["flat"] for k in wrappers}
         want = {"pq_decode_attention": L * (NEW_TOKENS - 1), "pq_chunk_attention": 0,
-                "pq_encode": 2 * L + 2 * res.n_flushes}
+                "pq_encode": 2 * L + 2 * res.n_flushes, "pq_paged_attention": 0}
         log(f"[generate] {geom} flat: TTFT {res.ttft_s:.3f} s, TPOT {res.tpot_s * 1e3:.3f} ms, "
             f"{BS / res.tpot_s:.1f} tok/s (bs={BS}), flushes={res.n_flushes}, "
             f"launches={got} (want {want}), peak mem {peak}, cache "
@@ -532,7 +867,7 @@ def main_path(dev):
         got = {k: launches[k][geom]["chunked"] for k in wrappers}
         want = {"pq_decode_attention": L * (CHUNK_NEW_TOKENS - 1),
                 "pq_chunk_attention": L * (n_chunks - 1),
-                "pq_encode": 2 * L * n_chunks + 2 * res.n_flushes}
+                "pq_encode": 2 * L * n_chunks + 2 * res.n_flushes, "pq_paged_attention": 0}
         counters = (cache["n_codes"], cache["r"])
         log(f"[generate] {geom} chunked (prefill_chunk={CHUNK}, {n_chunks} chunks): TTFT "
             f"{res.ttft_s:.3f} s (flat {ttft[(geom, 'flat')]:.3f} s), TPOT {res.tpot_s * 1e3:.3f} ms, "
@@ -561,7 +896,6 @@ def main_path(dev):
     dres, _ = generate(params, cfg, ids, dcache, None, mode="dense", max_new_tokens=33, device=dev)
     log(f"[generate] dense bf16 KV: TTFT {dres.ttft_s:.3f} s, TPOT {dres.tpot_s * 1e3:.3f} ms, "
         f"{BS / dres.tpot_s:.1f} tok/s (bs={BS}), peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return launches
 
 
 def main() -> int:
@@ -594,12 +928,17 @@ def main() -> int:
 
     # the paths run a bf16 model, whose history partial takes the tensor-core version
     rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev).items() if e == "stacked"},
+            "pq_paged_attention": paged_phase(dev),
             "pq_encode": encode_phase(dev),
             "pq_chunk_attention": {g: r for (g, pr), r in chunk_phase(dev).items() if pr == "bf16"}}
     if "--kernels-only" in sys.argv[1:]:
         return 0
     tiny_check(dev)
-    launches = main_path(dev)
+    tiny_serving_check(dev)
+    cfg, params = build_model(dev)
+    launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
+    main_path(dev, cfg, params, launches)
+    serving_path(dev, cfg, params, launches)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -3,11 +3,14 @@ a synthetic 32K cache (random codes as bench.py builds them), decode steps
 timed on the host clock and then traced with torch.profiler.
 
     python3 -m million_tpu_torch.benchmarks.decode_profile [--bs 4] [--steps 8]
+    python3 -m million_tpu_torch.benchmarks.decode_profile --bs 6 --modes paged:dm2,paged:dm4_outlier_c128
 
-For each mode (dense bf16 KV, pq_kernel dm2, pq_kernel dm4_outlier_c128) it
-prints the step time (host clock around synchronised steps), the device's
-busy time per step (union of the traced kernels' intervals), the idle
-share, and the kernels that take most device time. Needs a CUDA device.
+For each mode (dense bf16 KV, pq_kernel dm2, pq_kernel dm4_outlier_c128 over
+the flat cache; paged:<geometry> for a serving tick, paged_decode_step over
+--bs slots of a paged cache in 2048-token pages) it prints the step time
+(host clock around synchronised steps), the device's busy time per step
+(union of the traced kernels' intervals), the idle share, and the kernels
+that take most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,10 +22,13 @@ from collections import defaultdict
 import torch
 
 from million_tpu_torch.cache.dense_cache import DenseCacheConfig, init_dense_state
+from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig, init_paged_state
 from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
 from million_tpu_torch.models import llama
+from million_tpu_torch.models.paged_decode import paged_decode_step
 
 CTX, FILL = 32768, 32768 - 512
+PAGE_SIZE = 2048
 GEOMETRIES = {"dm2": (64, 256, 0), "dm4_outlier_c128": (32, 128, 16)}
 
 
@@ -35,14 +41,28 @@ def synthetic_state(cfg, bs, mode, gen, dev):
         c["v"].normal_(generator=gen)
         c["length"] = FILL
         return c, None
-    M, C, O = GEOMETRIES[mode.split(":")[1]]
-    c = init_state(PQCacheConfig(bs=bs, nh_k=nk, d=d, M=M, C=C, N_max=CTX, OK=O, OV=O), L, device=dev)
-    for side in ("key", "value"):
-        c[side + "_codes"].copy_(torch.randint(0, C, c[side + "_codes"].shape, generator=gen,
-                                               device=dev, dtype=torch.uint8))
-        if O:
-            c[side + "_outliers"].normal_(generator=gen)
-    c["n_codes"] = FILL
+    kind, geom = mode.split(":")
+    M, C, O = GEOMETRIES[geom]
+    if kind == "paged":  # every slot FILL tokens long, its pages one after the other
+        pps = CTX // PAGE_SIZE
+        pcfg = PagedPQCacheConfig(num_layers=L, nh_k=nk, d=d, M=M, C=C, page_size=PAGE_SIZE,
+                                  n_pages=bs * pps, max_seqs=bs, pages_per_seq=pps, OK=O, OV=O)
+        c = init_paged_state(pcfg, device=dev)
+        c["page_table"].copy_(torch.arange(bs * pps, device=dev).reshape(bs, pps))
+        c["seq_n_codes"].fill_(FILL)
+        c["seq_n_pages"].fill_(pps)
+        c["seq_active"].fill_(1)
+        c["config"] = pcfg
+        arenas, outliers = ("key_pool", "value_pool"), ("key_outlier_pool", "value_outlier_pool")
+    else:
+        c = init_state(PQCacheConfig(bs=bs, nh_k=nk, d=d, M=M, C=C, N_max=CTX, OK=O, OV=O), L, device=dev)
+        c["n_codes"] = FILL
+        arenas, outliers = ("key_codes", "value_codes"), ("key_outliers", "value_outliers")
+    for k in arenas:
+        c[k].copy_(torch.randint(0, C, c[k].shape, generator=gen, device=dev, dtype=torch.uint8))
+    if O:
+        for k in outliers:
+            c[k].normal_(generator=gen)
     cents = {"key": torch.randn((L, M, C, d // M), generator=gen, device=dev),
              "value": torch.randn((L, M, C, d // M), generator=gen, device=dev)}
     if O:
@@ -70,28 +90,34 @@ def busy_us(events) -> float:
 
 def profile_mode(params, cfg, bs, mode, steps, gen, dev):
     cache, cents = synthetic_state(cfg, bs, mode, gen, dev)
-    run_mode = "dense" if mode == "dense" else "pq_kernel"
     tok = torch.zeros((bs,), dtype=torch.long, device=dev)
+    if mode.startswith("paged"):
+        pcfg = cache.pop("config")
 
-    def step(i):
-        return llama.decode_step(params, cfg, tok, FILL + i, cache, cents, mode=run_mode)
+        def step(i):  # positions come from the device counters, as in a serving tick
+            return paged_decode_step(params, cfg, pcfg, tok, None, cache, cents, n_bound=CTX)
+
+        def rewind():
+            cache["seq_r"].zero_()
+    else:
+        run_mode = "dense" if mode == "dense" else "pq_kernel"
+
+        def step(i):
+            return llama.decode_step(params, cfg, tok, FILL + i, cache, cents, mode=run_mode)
+
+        def rewind():
+            cache.update({"length": FILL} if mode == "dense" else {"r": 0})
 
     for i in range(2):  # warm-up (and the kernel build)
         step(i)
-    if run_mode != "dense":
-        cache["r"] = 0
-    else:
-        cache["length"] = FILL
+    rewind()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
         step(i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    if run_mode != "dense":
-        cache["r"] = 0
-    else:
-        cache["length"] = FILL
+    rewind()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(steps):

@@ -1,0 +1,236 @@
+"""Continuous-batching serving benchmark on one NVIDIA GPU.
+
+Counterpart of million_tpu/benchmarks/serving_bench.py, with its two
+protocols that drive full slots:
+
+  steady state (default, --steady TICKS): fill every slot with a max-prompt
+    request, then time pure decode steps: steady tokens/s, per-token p50 and
+    p90, and the steps that pay flush_paged_slots. The admission wall (with
+    the first chain of decode ticks) is reported separately. The scheduler
+    never waits for the device beyond its pipelined token readback, so the
+    host clock around un-synced steps IS the tick time once the pipeline is
+    full; each step records (wall, chained ticks) and the percentiles are
+    over wall / ticks.
+  --preempt-demo: admit max_seqs long prompts into a pool sized so that
+    on-demand growth cannot be satisfied for every slot, run every request
+    to completion and verify that no token is lost: each finished request
+    has exactly --max-new tokens and the tokens stashed at preemption time
+    are a prefix of its final output.
+
+Weights are random from --seed, codebooks synthetic (standard normal; the
+outlier geometries get 16 + 16 exact channels with zero centroid components).
+Every result line carries the card's name and power limit.
+
+Run:  python3 -m million_tpu_torch.benchmarks.serving_bench \\
+          --preset llama-3.2-3b --max-seqs 6 --max-prompt 32640 \\
+          --page-size 2048 --pages-per-seq 17 --pool-pages 104 --steady 40
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+from million_tpu_torch.convert import cents_from_numpy
+from million_tpu_torch.models.llama import PRESETS, init_params
+from million_tpu_torch.runtime.sampling import SamplingConfig
+from million_tpu_torch.runtime.scheduler import Request, Scheduler
+
+GEOMETRIES = {  # name -> (d_m, C, exact outlier channels per side)
+    "dm2": (2, 256, 0),
+    "dm4_outlier": (4, 256, 16),
+    "dm4_outlier_c128": (4, 128, 16),
+}
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def synthetic_cents(L: int, d: int, geometry: str, rng: np.random.Generator):
+    """Standard-normal codebooks (L, M, C, d_m); outlier geometries get
+    sorted random exact channels whose centroid components are 0 (strided
+    layout: channel c is component c // M of subspace c % M)."""
+    d_m, C, O = GEOMETRIES[geometry]
+    M = d // d_m
+    cents = {side: rng.standard_normal((L, M, C, d_m)).astype(np.float32) for side in ("key", "value")}
+    if O:
+        for side, name in (("key", "k_outlier_idx"), ("value", "v_outlier_idx")):
+            idx = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
+            for c in idx:
+                cents[side][:, c % M, :, c // M] = 0.0
+            cents[name] = np.stack([idx] * L)
+    return cents, M, C, O
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def steady_state(args, cfg, pcfg, make_scheduler, card):
+    S = pcfg.max_seqs
+    n = (args.max_prompt // 4) * 4
+    rng = np.random.default_rng(args.seed)
+    sched = make_scheduler()
+    dev = sched.device
+    t0 = time.perf_counter()
+    for rid in range(S):
+        sched.submit(Request(rid, rng.integers(0, cfg.vocab_size, n), 1 << 30))
+    sched.step()  # admits all S (capacity permitting) + the first chain of decode ticks
+    _sync(dev)
+    admit_wall = time.perf_counter() - t0
+    act = sum(r is not None for r in sched.slot_req)
+    log(f"admitted {act}/{S} slots of {n}-token prompts in {admit_wall:.2f} s")
+
+    ticks, flush_ticks, n_tok = [], [], 0
+    T0 = time.perf_counter()
+    for _ in range(args.steady):
+        will_flush = any(sched.slot_r[i] >= pcfg.Lt
+                         for i, r in enumerate(sched.slot_req) if r is not None)
+        before = sched.ticks_dispatched
+        t1 = time.perf_counter()
+        n_tok += sched.step()
+        dt = time.perf_counter() - t1
+        (flush_ticks if will_flush else ticks).append(dt / max(sched.ticks_dispatched - before, 1))
+    sched.drain()
+    _sync(dev)
+    total = time.perf_counter() - T0
+    p50 = float(np.median(ticks)) if ticks else None  # None: every step flushed (Lt <= tick_chain)
+    flush_med = float(np.median(flush_ticks)) if flush_ticks else None
+    print(json.dumps({
+        "metric": f"steady-state serving decode, {args.preset}, {act} slots x {n}-token context "
+                  "(paged PQ, window-flush batching)",
+        "value": n_tok / total,
+        "unit": "generated tokens/s",
+        "tick_p50_ms": p50 * 1e3 if p50 else None,
+        "tick_p90_ms": float(np.percentile(ticks, 90)) * 1e3 if ticks else None,
+        "flush_tick_ms": flush_med * 1e3 if flush_med else None,
+        "flush_over_p50": flush_med / p50 if flush_med and p50 else None,
+        "admission_s": admit_wall,
+        "steps": args.steady,
+        "tick_chain": sched.tick_chain,
+        "ticks_dispatched": sched.ticks_dispatched,
+        "tokens": n_tok,
+        "preemptions": sched.preemptions,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None,
+        "geometry": args.geometry,
+        "card": card,
+    }))
+
+
+def preempt_demo(args, cfg, pcfg, make_scheduler, card):
+    S = pcfg.max_seqs
+    n = (args.max_prompt // 4) * 4
+    rng = np.random.default_rng(args.seed)
+    sched = make_scheduler()
+    for rid in range(S):
+        sched.submit(Request(rid, rng.integers(0, cfg.vocab_size, n), args.max_new))
+    stashes = {}  # rid -> tokens captured the moment it was preempted
+    seen_preempt = 0
+    t0 = time.perf_counter()
+    ticks = 0
+    while sched.waiting or any(r is not None for r in sched.slot_req):
+        if sched.step() == 0 and sched.waiting:
+            raise RuntimeError("preempt demo stalled")
+        ticks += 1
+        if sched.preemptions > seen_preempt:
+            seen_preempt = sched.preemptions
+            for rid, toks in sched._preempt_saved.items():
+                stashes.setdefault(rid, list(toks))
+        if ticks > 200000:
+            raise RuntimeError("runaway preempt demo")
+    sched.drain()
+    wall = time.perf_counter() - t0
+    fin = {f.rid: f.tokens for f in sched.finished}
+    continuity = True
+    for rid, pre in stashes.items():
+        got = list(fin[rid][: len(pre)])
+        if got != pre:
+            continuity = False
+            log(f"CONTINUITY VIOLATION rid {rid}: stash {pre[:8]}... vs final {got[:8]}...")
+    lens_ok = all(len(t) == args.max_new for t in fin.values())
+    print(json.dumps({
+        "metric": f"preemption demo, {args.preset}, {S} slots x {n}-token prompts x "
+                  f"{args.max_new} new, pool {pcfg.n_pages} pages (undersized for combined growth)",
+        "value": sum(len(t) for t in fin.values()) / wall,
+        "unit": "generated tokens/s",
+        "preemptions": sched.preemptions,
+        "requests": len(fin),
+        "all_lengths_exact": lens_ok,
+        "stash_continuity_ok": continuity,
+        "stashed_rids": sorted(stashes),
+        "wall_s": wall,
+        "card": card,
+    }))
+    if not (sched.preemptions > 0 and continuity and lens_ok and len(fin) == S):
+        raise SystemExit("preempt demo FAILED its invariants")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--preset", default="llama-3.2-3b", choices=sorted(PRESETS))
+    ap.add_argument("--max-new", type=int, default=64, help="new tokens per request (--preempt-demo)")
+    ap.add_argument("--max-prompt", type=int, default=32640)
+    ap.add_argument("--max-seqs", type=int, default=6, help="scheduler slots")
+    ap.add_argument("--page-size", type=int, default=2048,
+                    help="tokens per page; the card needs a multiple of 256")
+    ap.add_argument("--pages-per-seq", type=int, default=17)
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="page-pool size (default max_seqs * pages_per_seq); shrink it below the "
+                    "worst-case demand to exercise on-demand growth and preemption")
+    ap.add_argument("--lt", type=int, default=128, help="residual window rows")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--admit-chunk", type=int, default=2048, help="chunked-admission chunk length")
+    ap.add_argument("--geometry", default="dm2", choices=sorted(GEOMETRIES))
+    ap.add_argument("--steady", type=int, default=40, metavar="STEPS",
+                    help="steady-state mode: timed scheduler steps after admission")
+    ap.add_argument("--tick-chain", type=int, default=8, help="most decode ticks chained per step")
+    ap.add_argument("--preempt-demo", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (small presets only)")
+    args = ap.parse_args(argv)
+
+    dev = torch.device(args.device)
+    card = card_line() if dev.type == "cuda" else "cpu (not a device measurement)"
+    if dev.type == "cuda":  # build the kernels now, so that no timed phase pays for nvcc
+        from concurrent.futures import ThreadPoolExecutor
+
+        from million_tpu_torch.ops.cuda_build import build
+
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            list(pool.map(build, ("pq_paged_attention", "pq_chunk_attention", "pq_encode")))
+    cfg = PRESETS[args.preset]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, device=dev)
+    cents, M, C, O = synthetic_cents(cfg.num_layers, cfg.head_dim, args.geometry,
+                                     np.random.default_rng(args.seed))
+    tables = cents_from_numpy(cents, device=dev)
+    pcfg = PagedPQCacheConfig(
+        num_layers=cfg.num_layers, nh_k=cfg.num_kv_heads, d=cfg.head_dim, M=M, C=C, Lt=args.lt,
+        page_size=args.page_size, n_pages=args.pool_pages or args.max_seqs * args.pages_per_seq,
+        max_seqs=args.max_seqs, pages_per_seq=args.pages_per_seq, dtype=cfg.dtype, OK=O, OV=O)
+
+    def make_scheduler():
+        return Scheduler(params, cfg, pcfg, tables, SamplingConfig(), seed=args.seed,
+                         admit_chunk=args.admit_chunk, tick_chain=args.tick_chain, device=dev)
+
+    log(f"card: {card}")
+    (preempt_demo if args.preempt_demo else steady_state)(args, cfg, pcfg, make_scheduler, card)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,9 @@ JAX. The reference package's at-rest formats are translated:
   codes: (..., M, N/4) int32 words, byte t of word w = token 4w+t,
          subspace-major  ->  (..., N, M) uint8 token-major;
   outlier channels: byte planes (..., 4, O, N/4), [..., b, :, w] = token
-         4w+b  ->  (..., N, O) bf16.
+         4w+b  ->  (..., N, O) bf16;
+  page pools: the same two translations page by page (a page is a small
+         arena), the bookkeeping arrays carried over as they are.
 """
 
 from __future__ import annotations
@@ -91,4 +93,29 @@ def pq_cache_from_numpy(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         if (c != c[0]).any():
             raise ValueError(f"{k} differs across layers: {c}")
         out[k] = int(c[0])
+    return out
+
+
+def paged_state_from_numpy(state: Dict[str, Any], pcfg, device="cuda") -> Dict[str, torch.Tensor]:
+    """A million_tpu paged state (numpy leaves: word-packed pools, byte-plane
+    outlier pools, `used`, `page_table`, the seq_* counters, the residual
+    windows) -> the port's paged state for the PagedPQCacheConfig `pcfg`,
+    so that both packages can be stepped from the same cache."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for k in ("key_pool", "value_pool"):
+        if np.asarray(state[k]).dtype != np.int32:
+            raise NotImplementedError("wide int16 code pools are a later slice of the port")
+        out[k] = _tensor(arena_from_words(state[k]), torch.uint8, dev)
+    for k in ("key_outlier_pool", "value_outlier_pool"):
+        if k in state:
+            out[k] = _tensor(from_byte_plane(state[k]), torch.bfloat16, dev)
+    for k in ("key_residual", "value_residual"):
+        out[k] = _tensor(state[k], pcfg.dtype, dev)
+    for k in ("used", "page_table", "seq_n_codes", "seq_n_pages", "seq_r", "seq_active"):
+        out[k] = _tensor(state[k], torch.int32, dev)
+    want = (pcfg.num_layers, pcfg.n_pages + 1, pcfg.nh_k, pcfg.page_size, pcfg.M)
+    if tuple(out["key_pool"].shape) != want or out["page_table"].shape != (pcfg.max_seqs, pcfg.pages_per_seq):
+        raise ValueError(f"state does not match the config: key_pool {tuple(out['key_pool'].shape)}, "
+                         f"want {want}")
     return out

@@ -17,8 +17,10 @@
 // With the residual window given, the exact partial over its first r rows
 // is LSE-merged in as well (the whole decode-step attention).
 //
-// Design. Three launches. The token axis is cut into splits so that a batch
-// of one still fills the 132 SMs, and blocks are (split, KV head, sequence).
+// Design. Three launches (the device code is in pq_attention_passes.cuh,
+// which pq_paged_attention.cu instantiates for page pools). The token axis
+// is cut into splits so that a batch of one still fills the 132 SMs, and
+// blocks are (split, KV head, sequence).
 //   pq_score_kernel: the scores of every token (f32, to a scratch row per
 //     (b, h)) and each split's softmax max and sum, with the K codebook in
 //     shared memory.
@@ -44,570 +46,7 @@
 // design is bound by shared-memory traffic (a centroid gather per token and
 // subspace, q rows read from shared memory), not by either.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#define TILE 256      // tokens per tile
-#define THREADS 512   // threads per block: two per token in the score pass
-#define MAX_DM 8      // largest subspace width supported
-#define NEG_BIG (-1e30f)
-
-struct Params {
-  const float* q;              // (bs, nh_k, G, d) f32, pre-scaled
-  const uint8_t* kcodes;       // (bs, nh_k, N_max, M) uint8
-  const uint8_t* vcodes;       // (bs, nh_k, N_max, Mv) uint8
-  const float* kcent;          // (M, Ck, dmk) f32
-  const float* vcent;          // (Mv, Cv, dmv) f32
-  const __nv_bfloat16* kout;   // (bs, nh_k, N_max, OK) bf16 or null
-  const __nv_bfloat16* vout;   // (bs, nh_k, N_max, OV) bf16 or null
-  const int* koidx;            // (OK,) int32 or null
-  const int* voidx;            // (OV,) int32 or null
-  float* scores;               // (bs, nh_k, S * chunk, G) f32 scratch
-  float* ml_part;              // (bs, nh_k, S, G, 2) f32 scratch: split max, sum
-  float* out_part;             // (bs, nh_k, S, G, d) f32
-  float* lse_part;             // (bs, nh_k, S, G) f32
-  int nh_k, d, M, Ck, dmk, Mv, Cv, dmv, OK, OV, N_max, n_codes, S, chunk;
-  int cent_in_smem;            // the pass's codebook sits in shared memory
-  int rs;                      // shared-memory row stride of the pass's code tiles (bytes)
-};
-
-// Row stride for a tile of code rows read with 16-byte loads, one row per
-// thread: a multiple of 16 bytes that is an odd number of 16-byte chunks,
-// so eight consecutive rows fall in distinct bank groups.
-static int code_row_stride(int m) {
-  int rs = (m + 15) / 16 * 16;
-  if ((rs / 16) % 2 == 0) rs += 16;
-  return rs;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Copy nt rows of rb bytes (global rows contiguous) into shared rows of
-// stride rs, in 16-byte pieces when rb allows, else 4-byte pieces.
-__device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, int nt, int rb, int rs) {
-  if (rb % 16 == 0) {
-    const int per = rb / 16;
-    for (int i = threadIdx.x; i < nt * per; i += THREADS) {
-      const int r = i / per, c = i - r * per;
-      cp_async16(dst + r * rs + c * 16, src + (long)r * rb + c * 16);
-    }
-  } else {
-    const int per = rb / 4;
-    for (int i = threadIdx.x; i < nt * per; i += THREADS) {
-      const int r = i / per, c = i - r * per;
-      cp_async4(dst + r * rs + c * 4, src + (long)r * rb + c * 4);
-    }
-  }
-}
-
-__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
-  // n is a multiple of 4 and both pointers are 16-byte aligned
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < n / 4; i += THREADS) d4[i] = __ldg(s4 + i);
-}
-
-// s[g] += q[g, dim] * v for the GQ groups of four query rows.
-template <int GQ>
-__device__ __forceinline__ void fma_dim(float (&s)[4 * GQ], const float4* qt4, int dim, float v) {
-#pragma unroll
-  for (int j = 0; j < GQ; ++j) {
-    const float4 qv = qt4[dim * GQ + j];
-    s[4 * j + 0] = fmaf(qv.x, v, s[4 * j + 0]);
-    s[4 * j + 1] = fmaf(qv.y, v, s[4 * j + 1]);
-    s[4 * j + 2] = fmaf(qv.z, v, s[4 * j + 2]);
-    s[4 * j + 3] = fmaf(qv.w, v, s[4 * j + 3]);
-  }
-}
-
-template <int GQ>
-__device__ __forceinline__ void score_code(float (&s)[4 * GQ], const float4* qt4, const float* kc,
-                                           int m, int c, int M, int Ck, int dmk) {
-  const float* cent = kc + ((long)m * Ck + c) * dmk;
-  if (dmk == 2) {
-    const float2 cv = *reinterpret_cast<const float2*>(cent);
-    fma_dim<GQ>(s, qt4, m, cv.x);
-    fma_dim<GQ>(s, qt4, m + M, cv.y);
-  } else if (dmk == 4) {
-    const float4 cv = *reinterpret_cast<const float4*>(cent);
-    fma_dim<GQ>(s, qt4, m, cv.x);
-    fma_dim<GQ>(s, qt4, m + M, cv.y);
-    fma_dim<GQ>(s, qt4, m + 2 * M, cv.z);
-    fma_dim<GQ>(s, qt4, m + 3 * M, cv.w);
-  } else {
-    for (int t = 0; t < dmk; ++t) fma_dim<GQ>(s, qt4, m + t * M, cent[t]);
-  }
-}
-
-// Pass 1: scores of the split's tokens to p.scores, and the split's softmax
-// max and sum to p.ml_part.
-template <int G>
-__global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
-  constexpr int GQ = (G + 3) / 4;  // groups of four query rows
-  constexpr int GP = 4 * GQ;       // padded query rows
-  constexpr int NW = THREADS / 32;
-  extern __shared__ float4 smem4[];
-  uint8_t* ptr = reinterpret_cast<uint8_t*>(smem4);
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d = p.d, M = p.M, OK = p.OK;
-
-  const float* kc = p.kcent;
-  if (p.cent_in_smem) { kc = reinterpret_cast<float*>(ptr); ptr += (size_t)p.Ck * d * 4; }
-  uint8_t* kbuf = ptr;  ptr += 2 * TILE * p.rs;
-  const int okb = OK * 2;  // outlier row bytes
-  uint8_t* kobuf = ptr; ptr += (2 * TILE * okb + 15) / 16 * 16;
-  float* qt = reinterpret_cast<float*>(ptr);  ptr += d * GP * 4;  // qt[dim][GP]
-  float* qot = reinterpret_cast<float*>(ptr); ptr += (OK > 0 ? OK : 1) * GP * 4;
-  float* red_s = reinterpret_cast<float*>(ptr);
-
-  const long bh = (long)b * p.nh_k + h;
-  const int start = split * p.chunk;
-  const int end = min(start + p.chunk, p.n_codes);
-  const uint8_t* kg = p.kcodes + bh * p.N_max * M;
-  const uint8_t* kog = p.kout ? reinterpret_cast<const uint8_t*>(p.kout + bh * p.N_max * OK) : nullptr;
-  float* srow = p.scores + bh * (long)p.S * p.chunk * G;
-
-  auto prefetch = [&](int buf, int n0) {
-    const int nt = min(TILE, end - n0);
-    copy_rows(kbuf + buf * TILE * p.rs, kg + (long)n0 * M, nt, M, p.rs);
-    if (kog) copy_rows(kobuf + buf * TILE * okb, kog + (long)n0 * okb, nt, okb, okb);
-    cp_async_commit();
-  };
-  if (start < end) prefetch(0, start);
-  if (p.cent_in_smem) stage(const_cast<float*>(kc), p.kcent, p.Ck * d);
-  for (int i = tid; i < d * GP; i += THREADS) {
-    const int dim = i / GP, g = i % GP;
-    qt[i] = g < G ? p.q[(bh * G + g) * d + dim] : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < OK * GP; i += THREADS) qot[i] = qt[p.koidx[i / GP] * GP + i % GP];
-  // (visible to the score loop after the first tile's barrier)
-  const float4* qt4 = reinterpret_cast<const float4*>(qt);
-  const float4* qot4 = reinterpret_cast<const float4*>(qot);
-
-  float m_run[G], l_run[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m_run[g] = -INFINITY;
-    l_run[g] = 0.f;
-  }
-  // threads 2t and 2t+1 score token n0 + t, each over part of the
-  // subspaces (the second also adds the outlier term)
-  const int t_me = tid >> 1, half = tid & 1;
-  const int msplit = (M % 8 == 0) ? M / 2 : M;
-  const int m_lo = half ? msplit : 0, m_hi = half ? M : msplit;
-
-  int buf = 0;
-  for (int n0 = start; n0 < end; n0 += TILE, buf ^= 1) {
-    const int nt = min(TILE, end - n0);
-    if (n0 + TILE < end) {
-      prefetch(buf ^ 1, n0 + TILE);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[GP];
-#pragma unroll
-    for (int g = 0; g < GP; ++g) s[g] = 0.f;
-    if (t_me < nt) {
-      const uint8_t* row = kbuf + buf * TILE * p.rs + t_me * p.rs;
-      if (msplit % 16 == 0) {
-        for (int m0 = m_lo; m0 < m_hi; m0 += 16) {
-          const uint4 w = *reinterpret_cast<const uint4*>(row + m0);
-          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int k = 0; k < 16; ++k)
-            score_code<GQ>(s, qt4, kc, m0 + k, (ws[k >> 2] >> (8 * (k & 3))) & 0xFF, M, p.Ck, p.dmk);
-        }
-      } else {
-        for (int m0 = m_lo; m0 < m_hi; m0 += 4) {
-          const uint32_t w = *reinterpret_cast<const uint32_t*>(row + m0);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            score_code<GQ>(s, qt4, kc, m0 + k, (w >> (8 * k)) & 0xFF, M, p.Ck, p.dmk);
-        }
-      }
-      if (kog && half) {
-        const __nv_bfloat16* ko = reinterpret_cast<const __nv_bfloat16*>(kobuf + buf * TILE * okb) + t_me * OK;
-        for (int o = 0; o < OK; ++o) fma_dim<GQ>(s, qot4, o, __bfloat162float(ko[o]));
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
-      if (t_me >= nt) s[g] = -INFINITY;
-    }
-    if (t_me < nt && !half) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) srow[(long)(n0 + t_me) * G + g] = s[g];
-    }
-    // online max and sum over the tile
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float v = warp_max(s[g]);
-      if (lane == 0) red_s[g * NW + warp] = v;
-    }
-    __syncthreads();
-    float alpha[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mx = red_s[g * NW];
-#pragma unroll
-      for (int w = 1; w < NW; ++w) mx = fmaxf(mx, red_s[g * NW + w]);
-      const float m_new = fmaxf(m_run[g], mx);  // finite: the tile has a token
-      alpha[g] = expf(m_run[g] - m_new);
-      m_run[g] = m_new;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float e = (t_me < nt && !half) ? expf(s[g] - m_run[g]) : 0.f;
-      const float v = warp_sum(e);
-      if (lane == 0) red_s[g * NW + warp] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) sum += red_s[g * NW + w];
-      l_run[g] = l_run[g] * alpha[g] + sum;
-    }
-    __syncthreads();  // red_s and this buffer are rewritten next tile
-  }
-  if (tid < G) {
-    const bool empty = start >= end;
-    float m = NEG_BIG, l = 0.f;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      if (g == tid && !empty) { m = m_run[g]; l = l_run[g]; }
-    float* ml = p.ml_part + ((bh * p.S + split) * G + tid) * 2;
-    ml[0] = m;
-    ml[1] = l;
-  }
-}
-
-// Pass 2: P @ V over the split, V decoded on the fly, normalised by the
-// split's sum; writes the split's (out, lse).
-template <int G>
-__global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
-  constexpr int GQ = (G + 3) / 4;
-  constexpr int GP = 4 * GQ;
-  extern __shared__ float4 smem4[];
-  uint8_t* ptr = reinterpret_cast<uint8_t*>(smem4);
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int d = p.d, Mv = p.Mv, OV = p.OV;
-  const long bh = (long)b * p.nh_k + h;
-  const long base = bh * p.S + split;
-  const int start = split * p.chunk;
-  const int end = min(start + p.chunk, p.n_codes);
-  if (start >= end) {  // empty split: no barrier below is reached
-    for (int i = tid; i < G * d; i += THREADS) p.out_part[base * G * d + i] = 0.f;
-    if (tid < G) p.lse_part[base * G + tid] = NEG_BIG;
-    return;
-  }
-
-  const float* vc = p.vcent;
-  if (p.cent_in_smem) { vc = reinterpret_cast<float*>(ptr); ptr += (size_t)p.Cv * d * 4; }
-  uint8_t* vbuf = ptr;  ptr += 2 * TILE * p.rs;
-  const int ovb = OV * 2;
-  uint8_t* vobuf = ptr; ptr += (2 * TILE * ovb + 15) / 16 * 16;
-  const int sb = G * 4;  // score row bytes
-  uint8_t* sbuf = ptr;  ptr += (2 * TILE * sb + 15) / 16 * 16;
-  float* p_s = reinterpret_cast<float*>(ptr); ptr += TILE * GP * 4;  // p_s[t][GP]
-  float* o_s = reinterpret_cast<float*>(ptr); ptr += (G * d + 3) / 4 * 16;
-  float* co_s = reinterpret_cast<float*>(ptr);
-
-  const uint8_t* vg = p.vcodes + bh * p.N_max * Mv;
-  const uint8_t* vog = p.vout ? reinterpret_cast<const uint8_t*>(p.vout + bh * p.N_max * OV) : nullptr;
-  const uint8_t* sg = reinterpret_cast<const uint8_t*>(p.scores + bh * (long)p.S * p.chunk * G);
-
-  auto prefetch = [&](int buf, int n0) {
-    const int nt = min(TILE, end - n0);
-    copy_rows(vbuf + buf * TILE * p.rs, vg + (long)n0 * Mv, nt, Mv, p.rs);
-    if (vog) copy_rows(vobuf + buf * TILE * ovb, vog + (long)n0 * ovb, nt, ovb, ovb);
-    copy_rows(sbuf + buf * TILE * sb, sg + (long)n0 * sb, nt, sb, sb);
-    cp_async_commit();
-  };
-  prefetch(0, start);
-  if (p.cent_in_smem) stage(const_cast<float*>(vc), p.vcent, p.Cv * d);
-  for (int i = tid; i < G * d; i += THREADS) o_s[i] = 0.f;
-  for (int i = tid; i < G * OV; i += THREADS) co_s[i] = 0.f;
-  float m_s[G], l_s[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m_s[g] = p.ml_part[(base * G + g) * 2];
-    l_s[g] = p.ml_part[(base * G + g) * 2 + 1];
-  }
-  const float4* p4 = reinterpret_cast<const float4*>(p_s);
-
-  // column col in [0, Mv) is a subspace, [Mv, Mv + OV) an exact outlier
-  // channel; ngrp thread groups split the tile's tokens.
-  const int ncol = Mv + OV;
-  const int cpad = (ncol + 31) / 32 * 32;
-  const int ngrp = THREADS / cpad;
-  const int col = tid % cpad, grp = tid / cpad;
-  const bool col_ok = col < ncol && grp < ngrp;
-  float acc[G][MAX_DM];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < MAX_DM; ++j) acc[g][j] = 0.f;
-
-  int buf = 0;
-  for (int n0 = start; n0 < end; n0 += TILE, buf ^= 1) {
-    const int nt = min(TILE, end - n0);
-    if (n0 + TILE < end) {
-      prefetch(buf ^ 1, n0 + TILE);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (tid < TILE) {  // weights of the tile's tokens
-      const float* st = reinterpret_cast<const float*>(sbuf + buf * TILE * sb) + tid * G;
-#pragma unroll
-      for (int g = 0; g < GP; ++g)
-        p_s[tid * GP + g] = (g < G && tid < nt) ? expf(st[g < G ? g : 0] - m_s[g < G ? g : 0]) : 0.f;
-    }
-    __syncthreads();
-    if (col_ok) {
-      const uint8_t* vb = vbuf + buf * TILE * p.rs;
-      if (col < Mv) {
-        const int dmv = p.dmv;
-        const float* vcol = vc + (long)col * p.Cv * dmv;
-#pragma unroll 4
-        for (int t = grp; t < nt; t += ngrp) {
-          float pg[GP];
-#pragma unroll
-          for (int j = 0; j < GQ; ++j) {
-            const float4 pv = p4[t * GQ + j];
-            pg[4 * j] = pv.x; pg[4 * j + 1] = pv.y; pg[4 * j + 2] = pv.z; pg[4 * j + 3] = pv.w;
-          }
-          const float* cent = vcol + vb[t * p.rs + col] * dmv;
-          if (dmv == 2) {
-            const float2 cv = *reinterpret_cast<const float2*>(cent);
-#pragma unroll
-            for (int g = 0; g < G; ++g) {
-              acc[g][0] = fmaf(pg[g], cv.x, acc[g][0]);
-              acc[g][1] = fmaf(pg[g], cv.y, acc[g][1]);
-            }
-          } else if (dmv == 4) {
-            const float4 cv = *reinterpret_cast<const float4*>(cent);
-#pragma unroll
-            for (int g = 0; g < G; ++g) {
-              acc[g][0] = fmaf(pg[g], cv.x, acc[g][0]);
-              acc[g][1] = fmaf(pg[g], cv.y, acc[g][1]);
-              acc[g][2] = fmaf(pg[g], cv.z, acc[g][2]);
-              acc[g][3] = fmaf(pg[g], cv.w, acc[g][3]);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < MAX_DM; ++j) {
-              if (j < dmv) {
-                const float cv = cent[j];
-#pragma unroll
-                for (int g = 0; g < G; ++g) acc[g][j] = fmaf(pg[g], cv, acc[g][j]);
-              }
-            }
-          }
-        }
-      } else {
-        const __nv_bfloat16* vo =
-            reinterpret_cast<const __nv_bfloat16*>(vobuf + buf * TILE * ovb) + (col - Mv);
-#pragma unroll 4
-        for (int t = grp; t < nt; t += ngrp) {
-          const float v = __bfloat162float(vo[t * OV]);
-#pragma unroll
-          for (int j = 0; j < GQ; ++j) {
-            const float4 pv = p4[t * GQ + j];
-            const float pg[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              if (4 * j + k < G) acc[4 * j + k][0] = fmaf(pg[k], v, acc[4 * j + k][0]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // p_s and this buffer are rewritten next tile
-  }
-
-  // sum the thread groups, place the outlier channels, normalise
-  if (col_ok) {
-    if (col < Mv) {
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int j = 0; j < MAX_DM; ++j)
-          if (j < p.dmv) atomicAdd(&o_s[g * d + col + j * Mv], acc[g][j]);
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) atomicAdd(&co_s[g * OV + col - Mv], acc[g][0]);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * OV; i += THREADS) {
-    const int g = i / OV, o = i % OV;
-    o_s[g * d + p.voidx[o]] = co_s[i];
-  }
-  __syncthreads();
-  for (int i = tid; i < G * d; i += THREADS) {
-    const int g = i / d;
-    float l = 1.f;
-#pragma unroll
-    for (int gg = 0; gg < G; ++gg)
-      if (gg == g) l = l_s[gg];
-    p.out_part[base * G * d + i] = o_s[i] / l;
-  }
-  if (tid < G) {
-    float lse = NEG_BIG;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      if (g == tid) lse = m_s[g] + logf(l_s[g]);
-    p.lse_part[base * G + tid] = lse;
-  }
-}
-
-// LSE-merge of the per-split partials (merge_partials in ops/pq_attention_ref),
-// together with the exact partial over the first r rows of the residual
-// window when r > 0 (masked_partial_attention + merge_two_partials). One
-// block per (b, h); the residual rows are (bs, nh_k, Lt, d) bf16 or f32.
-__global__ void pq_reduce_kernel(const float* __restrict__ out_part,
-                                 const float* __restrict__ lse_part,
-                                 const float* __restrict__ q, const void* kres,
-                                 const void* vres, int r, int Lt, int res_bf16,
-                                 float* __restrict__ out, float* __restrict__ lse,
-                                 int S, int G, int d) {
-  extern __shared__ float rsm[];
-  float* q_s = rsm;           // G * d
-  float* p_s = q_s + G * d;   // G * Lt: residual scores, then weights
-  float* st = p_s + G * Lt;   // G * 2: residual max and sum
-  const long bh = blockIdx.x;
-  const int tid = threadIdx.x;
-  auto res_at = [&](const void* base, int j, int k) -> float {
-    const long i = (bh * Lt + j) * d + k;
-    return res_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[i])
-                    : reinterpret_cast<const float*>(base)[i];
-  };
-  for (int i = tid; i < G * d; i += blockDim.x) q_s[i] = q[bh * G * d + i];
-  __syncthreads();
-  for (int i = tid; i < G * r; i += blockDim.x) {
-    const int g = i / r, j = i % r;
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc = fmaf(q_s[g * d + k], res_at(kres, j, k), acc);
-    p_s[g * Lt + j] = acc;
-  }
-  __syncthreads();
-  if (tid < G) {
-    float m = NEG_BIG, l = 0.f;
-    if (r > 0) {
-      m = -INFINITY;
-      for (int j = 0; j < r; ++j) m = fmaxf(m, p_s[tid * Lt + j]);
-      for (int j = 0; j < r; ++j) {
-        const float e = expf(p_s[tid * Lt + j] - m);
-        p_s[tid * Lt + j] = e;
-        l += e;
-      }
-    }
-    st[2 * tid] = m;
-    st[2 * tid + 1] = l;
-  }
-  __syncthreads();
-  for (int i = tid; i < G * d; i += blockDim.x) {
-    const int g = i / d, k = i % d;
-    float o_r = 0.f, lse_r = NEG_BIG;
-    if (r > 0) {
-      for (int j = 0; j < r; ++j) o_r = fmaf(p_s[g * Lt + j], res_at(vres, j, k), o_r);
-      o_r /= st[2 * g + 1];
-      lse_r = st[2 * g] + logf(st[2 * g + 1]);
-    }
-    float mx = lse_r;
-    for (int s = 0; s < S; ++s) mx = fmaxf(mx, lse_part[(bh * S + s) * G + g]);
-    float den = expf(lse_r - mx);
-    float num = den * o_r;
-    for (int s = 0; s < S; ++s) {
-      const float w = expf(lse_part[(bh * S + s) * G + g] - mx);
-      den += w;
-      num += w * out_part[((bh * S + s) * G + g) * d + k];
-    }
-    out[bh * G * d + i] = num / den;
-    if (k == 0) lse[bh * G + g] = mx + logf(den);
-  }
-}
-
-static size_t up16(size_t n) { return (n + 15) / 16 * 16; }
-
-template <typename K>
-static cudaError_t launch(K kernel, const Params& p, int bs, size_t smem, size_t& attr_set,
-                          cudaStream_t st) {
-  if (smem > attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    attr_set = smem;
-  }
-  kernel<<<dim3(p.S, p.nh_k, bs), THREADS, smem, st>>>(p);
-  return cudaGetLastError();
-}
-
-// Shared memory of a pass: its tiles and scalars (`need`), plus the pass's
-// codebook when it fits beside them (else the codebook is read through L1).
-static size_t with_cent(Params& p, size_t need, size_t cent_bytes, int optin) {
-  p.cent_in_smem = need + cent_bytes <= (size_t)optin;
-  return p.cent_in_smem ? need + cent_bytes : need;
-}
-
-template <int G>
-static cudaError_t launch_passes(const Params& p, int bs, int optin, cudaStream_t st) {
-  constexpr int GP = 4 * ((G + 3) / 4);
-  static size_t attr_score = 0, attr_value = 0;
-  const int d = p.d;
-  Params ps = p;
-  ps.rs = code_row_stride(p.M);
-  const size_t need_s = 2 * TILE * (size_t)ps.rs + up16(2 * TILE * 2 * (size_t)p.OK) +
-                        (size_t)d * GP * 4 + (size_t)(p.OK > 0 ? p.OK : 1) * GP * 4 +
-                        up16(4 * (size_t)G * (THREADS / 32));
-  if (need_s > (size_t)optin) return cudaErrorInvalidConfiguration;
-  const size_t smem_s = with_cent(ps, need_s, sizeof(float) * (size_t)p.Ck * d, optin);
-  cudaError_t e = launch(pq_score_kernel<G>, ps, bs, smem_s, attr_score, st);
-  if (e != cudaSuccess) return e;
-  Params pv = p;
-  pv.rs = code_row_stride(p.Mv);
-  const size_t need_v = 2 * TILE * (size_t)pv.rs + up16(2 * TILE * 2 * (size_t)p.OV) +
-                        up16(2 * TILE * 4 * (size_t)G) + (size_t)TILE * GP * 4 +
-                        up16(4 * (size_t)G * d) + up16(4 * (size_t)G * (p.OV > 0 ? p.OV : 1));
-  if (need_v > (size_t)optin) return cudaErrorInvalidConfiguration;
-  const size_t smem_v = with_cent(pv, need_v, sizeof(float) * (size_t)p.Cv * d, optin);
-  return launch(pq_value_kernel<G>, pv, bs, smem_v, attr_value, st);
-}
+#include "pq_attention_passes.cuh"
 
 extern "C" int pq_decode_attention_tile() { return TILE; }
 
@@ -625,7 +64,7 @@ extern "C" int pq_decode_attention(
     void* scores, void* ml_part, void* out_part, void* lse_part, void* out, void* lse,
     int bs, int nh_k, int G, int d, int M, int Ck, int Mv, int Cv, int OK, int OV,
     int N_max, int n_codes, int S, int chunk, int r, int Lt, int res_bf16, void* stream) {
-  Params p;
+  Params p = {};
   p.q = (const float*)q;
   p.kcodes = (const uint8_t*)kcodes;
   p.vcodes = (const uint8_t*)vcodes;
@@ -642,29 +81,7 @@ extern "C" int pq_decode_attention(
   p.nh_k = nh_k; p.d = d; p.M = M; p.Ck = Ck; p.dmk = d / M;
   p.Mv = Mv; p.Cv = Cv; p.dmv = d / Mv; p.OK = OK; p.OV = OV;
   p.N_max = N_max; p.n_codes = n_codes; p.S = S; p.chunk = chunk;
-  p.cent_in_smem = 0;
-  p.rs = 0;
-
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  switch (G) {
-    case 1: e = launch_passes<1>(p, bs, optin, st); break;
-    case 2: e = launch_passes<2>(p, bs, optin, st); break;
-    case 3: e = launch_passes<3>(p, bs, optin, st); break;
-    case 4: e = launch_passes<4>(p, bs, optin, st); break;
-    case 5: e = launch_passes<5>(p, bs, optin, st); break;
-    case 6: e = launch_passes<6>(p, bs, optin, st); break;
-    case 7: e = launch_passes<7>(p, bs, optin, st); break;
-    case 8: e = launch_passes<8>(p, bs, optin, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return (int)e;
-  const size_t rsmem = sizeof(float) * (size_t)(G * d + G * Lt + 2 * G);
-  pq_reduce_kernel<<<bs * nh_k, 128, rsmem, st>>>(
-      (const float*)out_part, (const float*)lse_part, (const float*)q, kres, vres, r, Lt,
-      res_bf16, (float*)out, (float*)lse, S, G, d);
-  return (int)cudaGetLastError();
+  p.srow_len = S * chunk;
+  return run_passes<false>(p, bs, G, kres, vres, r, nullptr, Lt, res_bf16, (float*)out,
+                           (float*)lse, (cudaStream_t)stream);
 }

@@ -233,6 +233,15 @@ def _rope(cfg: ModelConfig, pos, device):
     return _rope_cos_sin(_rope_freqs_on(cfg, str(device)), pos, _rope_mscale(cfg))
 
 
+def _rope_per_seq(cfg: ModelConfig, pos: torch.Tensor, device):
+    """_rope for one token per sequence, each at its own position: pos (S,)
+    stays a device tensor (a serving tick derives it from the cache counters
+    without reading them back). cos/sin (S, 1, 1, dh/2) broadcast over the
+    heads of x (S, nh, 1, dh) in _rotate and _qkv."""
+    cos, sin = _rope_cos_sin(_rope_freqs_on(cfg, str(device)), pos, _rope_mscale(cfg))
+    return cos[:, None, None, :], sin[:, None, None, :]
+
+
 def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
     """x (bs, n, D) -> q (bs, nh, n, dh), k/v (bs, nk, n, dh), RoPE applied
     with rope = _rope(cfg, pos, device)."""

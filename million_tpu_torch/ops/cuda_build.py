@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into
 `million_tpu_torch/csrc/build/lib<name>-<hash>.so` (listed in .gitignore) the
 first time a kernel of that file is launched, and loaded with ctypes. The
 sources have a plain C interface and do not include PyTorch's headers, so a
-build takes seconds. The hash covers the source and the flags, so an edited
-source is rebuilt. Nothing is built when the module is imported.
+build takes seconds. The hash covers the source, the headers beside it
+(`csrc/*.cuh`, which a source may include) and the flags, so an edit of any
+of them is rebuilt. Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ def build(name: str) -> BuiltLibrary:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log, build_s = "", 0.0

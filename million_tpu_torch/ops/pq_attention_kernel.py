@@ -95,6 +95,7 @@ def pq_codes_attention_plain(
     r: int = 0,  # valid residual rows
     n_split: Optional[int] = None,
     n_sm: int = SM_COUNT_DEFAULT,
+    chunk: Optional[int] = None,  # tokens per split, in place of the planner's
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (out (bs, nh_k, G, d) f32, lse
     (bs, nh_k, G) f32); lse = -1e30 and out = 0 when n_codes == 0. With the
@@ -104,7 +105,10 @@ def pq_codes_attention_plain(
     qf = q.to(torch.float32)
     kc, vc = key_codes[layer], value_codes[layer]
     kcent, vcent = key_cents[layer].float(), value_cents[layer].float()
-    S, chunk = plan_splits(n_codes, bs * nh_k, n_sm, n_split)
+    if chunk:
+        S = max(1, -(-n_codes // chunk))
+    else:
+        S, chunk = plan_splits(n_codes, bs * nh_k, n_sm, n_split)
     outs, lses = [], []
     for s in range(S):
         lo, hi = s * chunk, min((s + 1) * chunk, n_codes)

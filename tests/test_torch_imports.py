@@ -3,6 +3,7 @@ anything of the million_tpu package (only the tests import both)."""
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -35,14 +36,64 @@ def test_sources_cover_the_chunked_prefill_slice():
         assert rel in names, rel
 
 
-@pytest.mark.parametrize("name", ["pq_decode_attention", "pq_chunk_attention", "pq_encode"])
+def test_sources_cover_the_serving_slice():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("million_tpu_torch/ops/pq_paged_attention_kernel.py",
+                "million_tpu_torch/cache/paged_pq_cache.py",
+                "million_tpu_torch/models/paged_decode.py",
+                "million_tpu_torch/runtime/scheduler.py",
+                "million_tpu_torch/benchmarks/serving_bench.py",
+                "million_tpu_torch/convert.py"):
+        assert rel in names, rel
+
+
+BANNED_IN_CUDA = ("torch/", "ATen", "cublas", "cudnn", "cutlass")
+
+
+@pytest.mark.parametrize("name", ["pq_decode_attention", "pq_chunk_attention", "pq_encode",
+                                  "pq_paged_attention"])
 def test_cuda_sources_have_a_plain_c_interface(name):
     """Each kernel source exists, exports its entry point with C linkage and
     includes neither PyTorch's headers nor a library's kernels."""
     text = (ROOT / "million_tpu_torch" / "csrc" / f"{name}.cu").read_text()
     assert f'extern "C" int {name}(' in text
-    for banned in ("torch/", "ATen", "cublas", "cudnn", "cutlass"):
+    for banned in BANNED_IN_CUDA:
         assert banned not in text, banned
+
+
+def test_shared_cuda_headers_are_clean_and_hashed(tmp_path, monkeypatch):
+    """The headers beside the sources hold only this package's device code,
+    and an edit of one changes the name of every library built from them."""
+    from million_tpu_torch.ops import cuda_build
+
+    headers = sorted((ROOT / "million_tpu_torch" / "csrc").glob("*.cuh"))
+    assert [h.name for h in headers] == ["pq_attention_passes.cuh"]
+    text = headers[0].read_text()
+    for banned in BANNED_IN_CUDA:
+        assert banned not in text, banned
+    for name in ("pq_decode_attention", "pq_paged_attention"):
+        assert '#include "pq_attention_passes.cuh"' in (headers[0].parent / f"{name}.cu").read_text()
+
+    def built_name(header_text):
+        """The library name build() settles on, with nvcc and the loader stubbed."""
+        (tmp_path / "k.cu").write_text("// kernel")
+        (tmp_path / "h.cuh").write_text(header_text)
+
+        def fake_nvcc(cmd, **kw):
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            return SimpleNamespace(returncode=0, stdout="", stderr="")
+
+        monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+        monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(cuda_build, "_LOADED", {})
+        monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(cuda_build.subprocess, "run", fake_nvcc)
+        monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: path)
+        return cuda_build.build("k").path.name
+
+    first = built_name("// a")
+    assert built_name("// a") == first
+    assert built_name("// b") != first
 
 
 def test_modules_import_without_building():
@@ -52,7 +103,11 @@ def test_modules_import_without_building():
     if torch.cuda.is_available():
         pytest.skip("with a card, an earlier test of this process may have built the kernels")
     from million_tpu_torch.models import chunked_prefill  # noqa: F401
-    from million_tpu_torch.ops import pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel
+    from million_tpu_torch.models import paged_decode  # noqa: F401
+    from million_tpu_torch.ops import (pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel,
+                                       pq_paged_attention_kernel)
+    from million_tpu_torch.runtime import scheduler  # noqa: F401
 
-    for mod in (pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel):
+    for mod in (pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel,
+                pq_paged_attention_kernel):
         assert mod._lib is None
