@@ -22,9 +22,12 @@ result line:
        dm4_outlier_c128, and on integer-valued inputs; the torch
        baddbmm + argmin encode beside it;
      - pq_chunk_attention for a 4096-token chunk (12,288 rows per KV head)
-       over 28,672 history tokens in dm2 and dm4_outlier_c128, in both
-       precisions (f32, and the bf16 tensor-core version the 16-bit model
-       takes); dense bf16 SDPA over the same lengths as a yardstick;
+       over 28,672 history tokens, and for the last 512-token chunk of the
+       serving admission (six slots, 1,536 rows per KV head) over 32,256
+       history tokens gathered from shuffled pool pages, in the three
+       geometries, in the bf16 tensor-core version the 16-bit model takes,
+       and at the chunk shape of the path geometries also in f32; dense bf16
+       SDPA over the same lengths as a yardstick;
      - pq_paged_attention at the serving shape (6 slots, 2048-token pages, 104
        + scratch, shuffled 17-entry tables, a bf16 residual window per slot)
        in the three geometries: ragged lengths with -1 table tails and an
@@ -74,6 +77,9 @@ CHUNK, CHUNK_NEW_TOKENS = 4096, 17  # the chunked path: 8 chunks, 16 decode step
 SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW_TOKENS = 6, 32640, 272
 PAGE_SIZE, PAGES_PER_SEQ, POOL_PAGES = 2048, 17, 104
 N_PREV = N_MAX - CHUNK  # kernel phase: the longest history a 32K arena gives a chunk
+# kernel phase, serving admission: the last 512-token chunk of a 32,640-token prompt
+ADMIT_CHUNK = 512
+N_PREV_ADMIT = (SERVE_PROMPT - 1) // ADMIT_CHUNK * ADMIT_CHUNK  # 32,256
 N_CODES = N_MAX - 512  # kernel phase: the arena fill of bench.py's decode
 RESIDUAL_ROWS = 97  # kernel phase: live rows of the 128-row residual window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -346,62 +352,57 @@ def encode_phase(dev):
 
 
 def chunk_phase(dev):
-    """pq_chunk_attention vs its plain version for one chunk over the longest history."""
+    """pq_chunk_attention vs its plain version at the two shapes the paths give
+    it: a 4096-token chunk over the longest history of the chunked path (both
+    precisions on the path geometries, bf16 on dm4_outlier), and the last
+    512-token chunk of a six-slot admission over an arena that _gather_history
+    lays out from shuffled pool pages (bf16, every geometry)."""
     import torch
     import torch.nn.functional as F
 
     from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.models.paged_decode import _gather_history
     from million_tpu_torch.ops import pq_chunk_attention_kernel as K
 
     nh_k, G, d = 8, 3, 128
     gen = torch.Generator(device=dev).manual_seed(6)
     rows = {}
-    for geom in PATH_GEOMETRIES:
-        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
-        cents = cents_from_numpy(synthetic_cents(1, d, geom, seed=7), device=dev)
-        q = torch.randn((BS, nh_k * G, CHUNK, d), generator=gen, device=dev)
-        qr = K.group_rows(q, nh_k, 1.0 / d**0.5).contiguous()  # (bs, nh_k, 12288, d)
-        kc = torch.randint(0, C, (BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
-        vc = torch.randint(0, C, (BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
-        okw = {}
-        if O:
-            okw = dict(
-                koidx=cents["k_outlier_idx"][0], voidx=cents["v_outlier_idx"][0],
-                k_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16(),
-                v_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16())
 
-        QR = CHUNK * G
-        nbytes = K.chunk_bytes(BS, nh_k, QR, d, N_PREV, M, M, O, O) + 2 * C * d * 4
-        ops = K.chunk_ops(BS, nh_k, QR, d, N_PREV, O)
+    def check(geom, shape, bs, q, kc, vc, cents, n_prev, okw, precisions):
+        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+        qr = K.group_rows(q, nh_k, 1.0 / d**0.5).contiguous()
+        QR = qr.shape[2]
+        nbytes = K.chunk_bytes(bs, nh_k, QR, d, n_prev, M, M, O, O) + 2 * C * d * 4
+        ops = K.chunk_ops(bs, nh_k, QR, d, n_prev, O)
         bound_ms, bound_by = bound_of(nbytes, ops, BF16_OPS_PER_S)
         # dense bf16 attention over the same lengths: a yardstick, not the same function
         qd = q.bfloat16()
-        kd = torch.randn((BS, nh_k, N_PREV, d), generator=gen, device=dev).bfloat16()
-        vd = torch.randn((BS, nh_k, N_PREV, d), generator=gen, device=dev).bfloat16()
+        kd = torch.randn((bs, nh_k, n_prev, d), generator=gen, device=dev).bfloat16()
+        vd = torch.randn((bs, nh_k, n_prev, d), generator=gen, device=dev).bfloat16()
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True), 5)
         del qd, kd, vd
         exact = None
-        for precision in ("f32", "bf16"):
+        for precision in precisions:
             def kern():
-                return K.pq_chunk_attention(qr, kc, vc, cents["key"][0], cents["value"][0], N_PREV,
+                return K.pq_chunk_attention(qr, kc, vc, cents["key"][0], cents["value"][0], n_prev,
                                             precision=precision, **okw)
 
-            def plain():
+            def plain(pr=precision):
                 return K.pq_chunk_attention_plain(qr, kc, vc, cents["key"][0], cents["value"][0],
-                                                  N_PREV, precision=precision, **okw)
+                                                  n_prev, precision=pr, **okw)
 
             out_k, lse_k = kern()
             torch.cuda.synchronize()
             out_p, lse_p = plain()
-            # through the GQA wrapper the path calls, against the regrouped plain result
+            # through the GQA wrapper the paths call, against the regrouped plain result
             out_w, lse_w = K.pq_chunk_history_attention(q, kc, vc, cents["key"][0], cents["value"][0],
-                                                        N_PREV, 1.0 / d**0.5, precision=precision, **okw)
+                                                        n_prev, 1.0 / d**0.5, precision=precision, **okw)
             out_g, lse_g = K.ungroup_rows(out_p, lse_p, nh_k * G)
             rms, peak = float(out_p.square().mean().sqrt()), float(out_p.abs().max())
             err_out = max(float((out_k - out_p).abs().max()), float((out_w - out_g).abs().max()))
             err_lse = max(float((lse_k - lse_p).abs().max()), float((lse_w - lse_g).abs().max()))
             if exact is None:
-                exact = (out_p, lse_p)
+                exact = (out_p, lse_p) if precision == "f32" else plain("f32")
             gap_out = float((out_k - exact[0]).abs().max())
             gap_lse = float((lse_k - exact[1]).abs().max())
             tol_out = CHUNK_OUT_TOL[precision]
@@ -409,9 +410,10 @@ def chunk_phase(dev):
                   and gap_out <= CHUNK_GAP_OUT_TOL and gap_lse <= CHUNK_GAP_LSE_TOL)
             del out_k, out_p, out_w, out_g
             ms, plain_ms = cuda_ms(kern, 3, warm=1), cuda_ms(plain, 1, warm=0)
-            rows[(geom, precision)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                           max_abs_err=max(err_out, err_lse), library_ms=None)
-            log(f"[kernel] pq_chunk_attention {geom} {precision}: bs={BS} rows={QR} n_prev={N_PREV} "
+            rows[(geom, shape, precision)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                  bound_by=bound_by, max_abs_err=max(err_out, err_lse),
+                                                  library_ms=None)
+            log(f"[kernel] pq_chunk_attention {geom} {precision} {shape}: bs={bs} rows={QR} n_prev={n_prev} "
                 f"out rms={rms:.3g} max={peak:.3g} out_err={err_out:.3g} (tol {tol_out:g}) "
                 f"lse_err={err_lse:.3g} (tol {CHUNK_LSE_TOL:g}), kernel and GQA wrapper; gap to the f32 "
                 f"plain version out {gap_out:.3g} (tol {CHUNK_GAP_OUT_TOL:g}) lse {gap_lse:.3g} "
@@ -421,9 +423,45 @@ def chunk_phase(dev):
                 f"{nbytes / 1e6:.1f} MB, {ops / 1e12:.2f} TFLOP) plain={plain_ms:.1f} ms "
                 f"dense_bf16_sdpa={sdpa_ms:.3f} ms {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise RuntimeError(f"pq_chunk_attention disagrees with its plain version ({geom}, {precision})")
+                raise RuntimeError(f"pq_chunk_attention disagrees with its plain version ({geom}, {shape}, "
+                                   f"{precision})")
         del exact
-        del q, qr, kc, vc, okw
+
+    S, nph = SERVE_SLOTS, -(-N_PREV_ADMIT // PAGE_SIZE)
+    for geom in GEOMETRIES:
+        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+        cents = cents_from_numpy(synthetic_cents(1, d, geom, seed=7), device=dev)
+        okidx = dict(koidx=cents["k_outlier_idx"][0], voidx=cents["v_outlier_idx"][0]) if O else {}
+        # the chunked path: one 4096-token chunk of bs sequences over a flat arena
+        q = torch.randn((BS, nh_k * G, CHUNK, d), generator=gen, device=dev)
+        kc = torch.randint(0, C, (BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
+        vc = torch.randint(0, C, (BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
+        okw = dict(okidx)
+        if O:
+            okw.update(k_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16(),
+                       v_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16())
+        check(geom, "chunk", BS, q, kc, vc, cents, N_PREV, okw,
+              ("f32", "bf16") if geom in PATH_GEOMETRIES else ("bf16",))
+        del q, kc, vc, okw
+        torch.cuda.empty_cache()
+        # serving admission: the last 512-token chunk of six slots over their history pages,
+        # gathered from a pool of 2048-token pages in shuffled order as admission gathers them
+        h_pages = torch.randperm(POOL_PAGES, generator=torch.Generator().manual_seed(13))[: S * nph]
+        h_pages = h_pages.reshape(S, nph).to(dev)
+
+        def arena(X, dtype=torch.uint8):
+            shape = (1, POOL_PAGES + 1, nh_k, PAGE_SIZE, X)
+            pool = (torch.randint(0, C, shape, generator=gen, device=dev, dtype=dtype) if dtype == torch.uint8
+                    else torch.randn(shape, generator=gen, device=dev).to(dtype))
+            return _gather_history(pool, 0, h_pages)
+
+        q = torch.randn((S, nh_k * G, ADMIT_CHUNK, d), generator=gen, device=dev)
+        kc, vc = arena(M), arena(M)
+        okw = dict(okidx)
+        if O:
+            okw.update(k_outliers=arena(O, torch.bfloat16), v_outliers=arena(O, torch.bfloat16))
+        check(geom, "admission", S, q, kc, vc, cents, N_PREV_ADMIT, okw, ("bf16",))
+        del q, kc, vc, okw
         torch.cuda.empty_cache()
     return rows
 
@@ -930,7 +968,8 @@ def main() -> int:
     rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev).items() if e == "stacked"},
             "pq_paged_attention": paged_phase(dev),
             "pq_encode": encode_phase(dev),
-            "pq_chunk_attention": {g: r for (g, pr), r in chunk_phase(dev).items() if pr == "bf16"}}
+            "pq_chunk_attention": {g: r for (g, shape, pr), r in chunk_phase(dev).items()
+                                   if shape == "chunk" and pr == "bf16"}}
     if "--kernels-only" in sys.argv[1:]:
         return 0
     tiny_check(dev)

@@ -11,6 +11,9 @@ protocols that drive full slots:
     host clock around un-synced steps IS the tick time once the pipeline is
     full; each step records (wall, chained ticks) and the percentiles are
     over wall / ticks.
+  --profile-admission: trace the admission step with torch.profiler and
+    report its device busy time, idle share and the kernels that take most
+    of it (use with --steady 0 to stop after admission).
   --preempt-demo: admit max_seqs long prompts into a pool sized so that
     on-demand growth cannot be satisfied for every slot, run every request
     to completion and verify that no token is lost: each finished request
@@ -91,9 +94,18 @@ def steady_state(args, cfg, pcfg, make_scheduler, card):
     t0 = time.perf_counter()
     for rid in range(S):
         sched.submit(Request(rid, rng.integers(0, cfg.vocab_size, n), 1 << 30))
-    sched.step()  # admits all S (capacity permitting) + the first chain of decode ticks
-    _sync(dev)
-    admit_wall = time.perf_counter() - t0
+    profile = {}
+    if args.profile_admission:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            sched.step()
+            _sync(dev)
+        admit_wall = time.perf_counter() - t0
+        profile = admission_profile(prof, admit_wall)
+    else:
+        sched.step()  # admits all S (capacity permitting) + the first chain of decode ticks
+        _sync(dev)
+        admit_wall = time.perf_counter() - t0
     act = sum(r is not None for r in sched.slot_req)
     log(f"admitted {act}/{S} slots of {n}-token prompts in {admit_wall:.2f} s")
 
@@ -129,8 +141,31 @@ def steady_state(args, cfg, pcfg, make_scheduler, card):
         "preemptions": sched.preemptions,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None,
         "geometry": args.geometry,
+        **profile,
         "card": card,
     }))
+
+
+def admission_profile(prof, wall_s: float) -> dict:
+    """Device busy time, idle share and the top kernels of a traced admission
+    (the wall includes the profiler's own cost)."""
+    from collections import defaultdict
+
+    from million_tpu_torch.benchmarks.decode_profile import busy_us
+
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us()
+    busy_s = busy_us(events) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log(f"admission traced: wall {wall_s:.3f} s (with the profiler), device busy {busy_s:.3f} s, "
+        f"{len(events)} kernels")
+    for name, us in top:
+        log(f"    {us / 1e6:8.3f} s  {name[:110]}")
+    return {"admission_traced_wall_s": wall_s, "admission_device_busy_s": busy_s,
+            "admission_idle_share": max(0.0, 1 - busy_s / wall_s),
+            "admission_top_kernels_s": {name[:80]: us / 1e6 for name, us in top}}
 
 
 def preempt_demo(args, cfg, pcfg, make_scheduler, card):
@@ -201,6 +236,8 @@ def main(argv=None):
                     help="steady-state mode: timed scheduler steps after admission")
     ap.add_argument("--tick-chain", type=int, default=8, help="most decode ticks chained per step")
     ap.add_argument("--preempt-demo", action="store_true")
+    ap.add_argument("--profile-admission", action="store_true",
+                    help="trace the admission step (steady-state mode)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (small presets only)")
     args = ap.parse_args(argv)
 

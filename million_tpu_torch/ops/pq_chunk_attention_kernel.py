@@ -15,11 +15,12 @@ outlier channels in place.
 
 Two precisions, one function. "f32": every product in f32, for f32 models and
 as the reference of the other. "bf16": q, the decoded K and V and the softmax
-weights rounded to bf16, f32 accumulation, on the tensor cores (mma.sync):
-how a 16-bit model's own attention products run on the card, and what
-pq_chunk_history_attention picks for 16-bit queries. The plain version takes
-the same argument and rounds at the same places, so it stays the kernel's
-arithmetic in PyTorch on either setting.
+weights rounded to bf16, f32 accumulation, on the tensor cores (wgmma, with
+producer warpgroups decoding the next tile of the history while consumer
+warpgroups multiply this one): how a 16-bit model's own attention products run on the
+card, and what pq_chunk_history_attention picks for 16-bit queries. The plain
+version takes the same argument and rounds at the same places, so it stays
+the kernel's arithmetic in PyTorch on either setting.
 
 `pq_chunk_attention` runs the plain version for CPU tensors, launches the
 kernel for CUDA tensors, and raises otherwise; it counts kernel launches in
@@ -40,7 +41,12 @@ Q_BLOCK = 128  # query rows per block (BQ in the .cu source)
 MAX_D = 128
 PRECISIONS = ("f32", "bf16")
 MMA_HEAD_DIMS = (16, 64, 128)  # head dims the tensor-core version is built for
-MMA_MAX_OK = 16  # and its most K outlier channels
+MMA_MAX_OK = MMA_MAX_OV = 16  # and its most exact channels a side
+# the tensor-core version's shared-memory plan (mma_plan in the .cu source)
+MMA_TILE = 64  # history tokens per tile (NT)
+MMA_MAX_STAGES = 4
+SMEM_HEAD = 256  # mbarriers and the V position map
+SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100
 
 _lib = None
 
@@ -58,11 +64,46 @@ def _library():
         )
         lib.pq_chunk_attention_smem.restype = ctypes.c_long
         lib.pq_chunk_attention_smem.argtypes = [ctypes.c_int] * 8
+        for fn in (lib.pq_chunk_attention_stages, lib.pq_chunk_attention_slots):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int] * 7
         lib.pq_chunk_attention_q_block.restype = ctypes.c_int
         if lib.pq_chunk_attention_q_block() != Q_BLOCK:
             raise RuntimeError("Q_BLOCK differs between the Python wrapper and the CUDA source")
         _lib = lib
     return _lib
+
+
+def _row_stride(rb: int, pad: bool) -> int:
+    """Bytes between two staged rows of rb bytes (row_stride in the .cu source)."""
+    if not pad:
+        return (rb + 3) // 4 * 4
+    return rb + 16 if rb % 16 == 0 else (rb + 3) // 4 * 4 + 4
+
+
+def mma_smem_plan(d: int, OK: int, C_k: int, C_v: int, M: int, M_v: int, OV: int) -> Tuple[int, int, int]:
+    """(stages, slots, bytes) of the tensor-core version's shared memory, the
+    mirror of mma_plan in csrc/pq_chunk_attention.cu. Beside a 256-byte head
+    and both codebooks in bf16 it holds `slots` slots of a 64-token tile's
+    staged code and exact-channel rows and `stages` decoded tiles: K_hat
+    (d + op positions), V_hat (d) and the exact V channels (op), 64 tokens in
+    bf16, where op = 16 when either side has exact channels or d = 64, else
+    0. It takes the first of (three slots, padded rows), (two, padded), (two,
+    unpadded) beside which two stages fit in 232,448 bytes (_row_stride says
+    how rows are padded), then as many stages as fit, at most 4. Past the
+    limit, the bytes at two unpadded slots and 2 stages (which the wrapper
+    refuses)."""
+    op = 16 if OK or OV or d == 64 else 0
+    stage = 2 * MMA_TILE * (2 * d + 2 * op)
+    base = SMEM_HEAD + 2 * (C_k + C_v) * d
+    for slots, pad in ((3, True), (2, True), (2, False)):
+        slot = MMA_TILE * (_row_stride(M, pad) + _row_stride(M_v, pad)
+                           + (_row_stride(2 * OK, pad) if OK else 0) + (_row_stride(2 * OV, pad) if OV else 0))
+        n = (SMEM_OPTIN - base - slots * slot) // stage
+        if n >= 2:
+            break
+    n = min(MMA_MAX_STAGES, max(2, n))
+    return n, slots, base + slots * slot + n * stage
 
 
 def pq_chunk_attention_plain(
@@ -167,12 +208,18 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, n_codes,
             raise ValueError("v_outliers / voidx shapes")
         vo_p, vidx_p = v_outliers.data_ptr(), voidx.data_ptr()
     mma = int(precision == "bf16")
-    if mma and (d not in MMA_HEAD_DIMS or OK > MMA_MAX_OK or OK % 2 or OV % 2 or M_v % 4):
+    if mma and (d not in MMA_HEAD_DIMS or OK > MMA_MAX_OK or OV > MMA_MAX_OV or OK % 2 or OV % 2
+                or M_v % 4):
         raise ValueError(f"the bf16 kernel is built for d in {MMA_HEAD_DIMS}, even OK <= "
-                         f"{MMA_MAX_OK}, even OV and M_v % 4 == 0, got d={d}, OK={OK}, OV={OV}, "
-                         f"M_v={M_v}")
+                         f"{MMA_MAX_OK}, even OV <= {MMA_MAX_OV} and M_v % 4 == 0, got d={d}, "
+                         f"OK={OK}, OV={OV}, M_v={M_v}")
     lib = _library()
     need = lib.pq_chunk_attention_smem(d, OK, C_k, C_v, mma, M, M_v, OV)
+    if mma:
+        geom = (d, OK, C_k, C_v, M, M_v, OV)
+        plan = (lib.pq_chunk_attention_stages(*geom), lib.pq_chunk_attention_slots(*geom), need)
+        if plan != mma_smem_plan(*geom):
+            raise RuntimeError("the shared-memory plan differs between the Python wrapper and the CUDA source")
     limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
     if need > limit:
         raise ValueError(f"d={d}, OK={OK}, C={C_k}/{C_v} at precision {precision} needs {need} B "

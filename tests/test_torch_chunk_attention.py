@@ -32,10 +32,12 @@ def _t(x):
 
 
 def make_case(rng, *, bs=1, nh_k=2, G=2, nc=12, d=16, M=8, C=32, M_v=None, C_v=None,
-              O=0, N=128):
+              O=0, N=128, OK=None, OV=None):
     """Random inputs in million_tpu's layouts (codes subspace-major (.., M, N))
-    with outlier channels whose centroid components are 0."""
+    with outlier channels whose centroid components are 0: O a side, or OK
+    and OV where the two sides differ."""
     M_v, C_v = M_v or M, C_v or C
+    OK, OV = (O if OK is None else OK), (O if OV is None else OV)
     c = dict(
         q=rng.standard_normal((bs, nh_k * G, nc, d)).astype(np.float32),
         kc=rng.integers(0, C, (bs, nh_k, M, N)).astype(np.uint8),
@@ -43,16 +45,19 @@ def make_case(rng, *, bs=1, nh_k=2, G=2, nc=12, d=16, M=8, C=32, M_v=None, C_v=N
         kcent=rng.standard_normal((M, C, d // M)).astype(np.float32),
         vcent=rng.standard_normal((M_v, C_v, d // M_v)).astype(np.float32),
     )
-    if O:
-        bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
-        c["ko"] = bf(rng.standard_normal((bs, nh_k, N, O)) * 2)  # (.., N, O)
-        c["vo"] = bf(rng.standard_normal((bs, nh_k, N, O)) * 2)
-        c["koidx"] = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
-        c["voidx"] = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
-        for ch in c["koidx"]:
-            c["kcent"][ch % M, :, ch // M] = 0.0
-        for ch in c["voidx"]:
-            c["vcent"][ch % M_v, :, ch // M_v] = 0.0
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    if OK:
+        c["ko"] = bf(rng.standard_normal((bs, nh_k, N, OK)) * 2)  # (.., N, OK)
+    if OV:
+        c["vo"] = bf(rng.standard_normal((bs, nh_k, N, OV)) * 2)
+    if OK:
+        c["koidx"] = np.sort(rng.choice(d, OK, replace=False)).astype(np.int32)
+    if OV:
+        c["voidx"] = np.sort(rng.choice(d, OV, replace=False)).astype(np.int32)
+    for ch in c.get("koidx", ()):
+        c["kcent"][ch % M, :, ch // M] = 0.0
+    for ch in c.get("voidx", ()):
+        c["vcent"][ch % M_v, :, ch // M_v] = 0.0
     return c
 
 
@@ -64,8 +69,9 @@ def port_args(c, dev="cpu"):
             _t(c["kcent"]), _t(c["vcent"])]
     kw = {}
     if "ko" in c:
-        kw = dict(koidx=_t(c["koidx"]), k_outliers=_t(c["ko"]).bfloat16(),
-                  voidx=_t(c["voidx"]), v_outliers=_t(c["vo"]).bfloat16())
+        kw.update(koidx=_t(c["koidx"]), k_outliers=_t(c["ko"]).bfloat16())
+    if "vo" in c:
+        kw.update(voidx=_t(c["voidx"]), v_outliers=_t(c["vo"]).bfloat16())
     return [a.to(dev) for a in args], {k: v.to(dev) for k, v in kw.items()}
 
 
@@ -211,6 +217,59 @@ def test_bound_counts():
     assert K.chunk_bytes(1, 1, 10, 128, 100, 64, 64) == 10 * 257 * 4 + 100 * 128
 
 
+def test_bound_counts_admission_shape():
+    """The last 512-token chunk of a six-slot admission: 6 x 8 (slot, KV head)
+    pairs of 1,536 rows (512 positions x 3 query heads) over 32,256 tokens."""
+    pairs, rows, n = 6 * 8, 512 * 3, 32256
+    # a multiply-add is 2 operations: q . K_hat over d (+ the exact K channels), P V_hat over d
+    assert K.chunk_ops(6, 8, 1536, 128, n) == pairs * rows * n * 2 * (128 + 128)
+    assert K.chunk_ops(6, 8, 1536, 128, n, 16) == pairs * rows * n * 2 * (128 + 16 + 128)
+    # q read and out written (f32, d wide), lse written (f32), codes (and exact channels) read once
+    assert K.chunk_bytes(6, 8, 1536, 128, n, 64, 64) == pairs * (rows * (4 * 128 * 2 + 4) + n * 128)
+    assert K.chunk_bytes(6, 8, 1536, 128, n, 32, 32, 16, 16) == pairs * (
+        rows * (4 * 128 * 2 + 4) + n * (32 + 32 + 2 * 16 + 2 * 16))
+
+
+def _staged_row(rb, pad):
+    if not pad:
+        return (rb + 3) // 4 * 4
+    return rb + 16 if rb % 16 == 0 else (rb + 3) // 4 * 4 + 4
+
+
+# (d, M, C, OK = OV) of the geometries the card runs the tensor-core version
+# in, with the (stages, staging slots, padded rows) the plan must give them
+PLAN_GEOMETRIES = {
+    "dm2": ((128, 64, 256, 0), (2, 3, True)),
+    "dm4_outlier": ((128, 32, 256, 16), (2, 2, True)),
+    "dm4_outlier_c128": ((128, 32, 128, 16), (3, 3, True)),
+    "test-tiny": ((16, 4, 64, 4), (4, 3, True)),
+    "dm2_outlier": ((128, 64, 256, 16), (2, 2, False)),
+}
+
+
+@pytest.mark.parametrize("geom", sorted(PLAN_GEOMETRIES))
+def test_mma_smem_plan_fits_and_follows_its_formula(geom):
+    """The shared-memory plan of the tensor-core version (the mirror of the
+    .cu source's mma_plan, which the wrapper holds it against on the card):
+    a 256-byte head, both codebooks in bf16, staging slots of a 64-token
+    tile's code and exact-channel rows, decoded-tile stages of K_hat, V_hat
+    and the exact V channels; it fits the 232,448 bytes a block may take, for
+    every geometry of chip_smoke.py and test-tiny."""
+    import chip_smoke
+
+    (d, M, C, O), (want_stages, want_slots, pad) = PLAN_GEOMETRIES[geom]
+    if geom in chip_smoke.GEOMETRIES:
+        g = chip_smoke.GEOMETRIES[geom]
+        assert (g["M"], g["C"], g["O"]) == (M, C, O)
+    stages, slots, nbytes = K.mma_smem_plan(d, O, C, C, M, M, O)
+    op = 16 if O else 0
+    slot = 64 * (2 * _staged_row(M, pad) + (2 * _staged_row(2 * O, pad) if O else 0))
+    stage = 64 * 2 * (d + op + d + op)
+    assert (stages, slots) == (want_stages, want_slots)
+    assert nbytes == 256 + 2 * 2 * C * d + slots * slot + stages * stage <= 232448
+    assert stages == 4 or nbytes + stage > 232448  # one more stage would not fit
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -224,6 +283,17 @@ CUDA_CASES = {
     "asym_G4": dict(G=4, nc=64, d=128, M=64, C=256, M_v=32, C_v=128, O=16, N=512),
     "d64_G8": dict(G=8, nc=40, d=64, M=32, C=256, N=512),
     "test_tiny_G2": dict(G=2, nc=16, d=16, M=4, C=64, O=4, N=128),
+    # the edges of the tensor-core version's tiles (64 tokens) and blocks
+    # (two warpgroups of 64 rows): 3, 130 and 1,536 rows
+    "rows3_dm2_c256": dict(G=3, nc=1, d=128, M=64, C=256, N=512),
+    "rows130_dm4_c256_outliers": dict(G=2, nc=65, d=128, M=32, C=256, O=16, N=512),
+    "rows1536_dm4_c128_outliers": dict(G=3, nc=512, d=128, M=32, C=128, O=16, N=512),
+    "k_exact_only_dm4_c256": dict(G=3, nc=40, d=128, M=32, C=256, OK=16, OV=0, N=512),
+    "v_exact_only_dm2_c128": dict(G=3, nc=40, d=128, M=64, C=128, OK=0, OV=16, N=512),
+    "d64_dm4_c128_outliers": dict(G=3, nc=50, d=64, M=16, C=128, O=16, N=512),
+    "d16_dm2_c256": dict(G=2, nc=30, d=16, M=8, C=256, N=256),
+    # shared memory too tight for padded staging rows (PLAN_GEOMETRIES["dm2_outlier"])
+    "dm2_outliers_c256_unpadded": dict(G=3, nc=40, d=128, M=64, C=256, O=16, N=512),
 }
 
 
@@ -251,17 +321,21 @@ def test_cuda_kernel_matches_plain(rng, cuda_device, case):
 @pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_cuda_tensor_core_kernel_matches_plain(rng, cuda_device, case):
     """The bf16 tensor-core version against the plain version that rounds at
-    the same places: 2e-3 on outputs of order 0.1 to 4, because the two round
-    the softmax weights against different running maxima (a 64-token tile
-    there, a 1024-token block here); and within 2e-2 of the f32 result (one
-    bf16 step of a V component of 4 is 1.6e-2)."""
+    the same places, over history blocks of the kernel's 64-token tile, so
+    that both round the softmax weights against the same running maxima:
+    2e-3 on outputs of order 0.1 to 4 (a weight's bf16 rounding can still
+    fall the other way on the last bit); and within 2e-2 of the f32 result
+    (one bf16 step of a V component of 4 is 1.6e-2). Histories: empty, one
+    token, either side of one and of two 64-token tiles, several tiles and a
+    ragged tail, and the whole arena."""
     c = make_case(rng, bs=2, **CUDA_CASES[case])
     N = c["kc"].shape[-1]
     scale = 1.0 / c["q"].shape[-1] ** 0.5
     args, kw = port_args(c)
     dargs, dkw = port_args(c, cuda_device)
-    for n_prev in (0, 1, 63, 64, N - 3, N):
-        want = K.pq_chunk_history_attention(*args, n_prev, scale, precision="bf16", **kw)
+    for n_prev in sorted({n for n in (0, 1, 63, 64, 65, 127, 129, 3 * 64 + 5) if n <= N} | {N - 3, N}):
+        want = K.pq_chunk_history_attention(*args, n_prev, scale, precision="bf16",
+                                            hist_block=K.MMA_TILE, **kw)
         exact = K.pq_chunk_history_attention(*args, n_prev, scale, **kw)
         before = K.pq_chunk_attention.launches
         got = K.pq_chunk_history_attention(*dargs, n_prev, scale, precision="bf16", **dkw)
