@@ -7,7 +7,7 @@
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of the four CUDA sources of million_tpu_torch/csrc with nvcc,
+  2. the build of the five CUDA sources of million_tpu_torch/csrc with nvcc,
      one nvcc each, started together;
   3. every kernel against its plain PyTorch version on the card at the main
      paths' shapes (llama-3.2-3b: G=3, d=128, 8 KV heads, batch 4), with its
@@ -33,7 +33,18 @@ result line:
        in the three geometries: ragged lengths with -1 table tails and an
        empty slot, six full slots of 32,640 tokens (timed), the single-layer
        entry, and the pages-per-block mode at 2 and 4 pages;
-  4. the main paths, at the full width of llama-3.2-3b (28 layers, random
+     - causal_attention, the in-chunk causal partial, in bf16 at the chunk
+       shape (4 sequences x a 4096-token chunk, 24 / 8 heads, d=128) and the
+       admission shape (6 slots x 512 tokens), q/k/v as the model's
+       projection lays them out, and in f32 at test-tiny width; torch's flash
+       attention with the logsumexp over the same lengths as the library
+       yardstick;
+  4. the fault repaired in the history partial's routing: a bf16 model with
+     32 exact channels a side (a geometry the tensor-core version of
+     pq_chunk_attention is not built for) takes its f32 version, alone and
+     in a chunked prefill and a paged admission of two layers of
+     llama-3.2-3b, each against the plain route;
+  5. the main paths, at the full width of llama-3.2-3b (28 layers, random
      weights from a seed, bench.py's synthetic codebooks), 4 requests of
      32,000-token prompts, in mode "pq_kernel" for dm2 and dm4_outlier_c128:
      - the flat path: generate() with 160 new tokens and F=16 sub-window
@@ -43,13 +54,14 @@ result line:
        the plain oracle mode "pq";
      - the chunked path: generate(prefill_chunk=4096) with 17 new tokens,
        with TTFT, peak memory and the launch counts (chunk kernel = layers x
-       (chunks - 1), encode kernel = 2 x layers x chunks); the last chunk's
-       logits through the kernel against the plain history route on the
-       same cache;
+       (chunks - 1), causal kernel = layers x chunks, encode kernel = 2 x
+       layers x chunks); the last chunk's logits through the kernels against
+       the plain versions of both partials on the same cache;
      - the serving path: a Scheduler with 6 slots over the paged cache, six
        requests of 32,640-token prompts and 272 new tokens submitted together
        (one group admission in 64 chunks of 512 through the chunk-history and
-       encode kernels, the decode ticks through the paged kernel, two window
+       encode kernels and the causal kernel, the decode ticks through the
+       paged kernel, two window
        flushes and one page growth per slot), with the admission wall, the
        per-token tick p50 / p90, the flush steps, tokens/s, peak memory, the
        launch counts (paged kernel = layers x dispatched ticks) and any host
@@ -58,7 +70,7 @@ result line:
      a test-tiny generate, flat and chunked, and a test-tiny Scheduler with a
      forced preemption, on the card against the CPU; dense-mode TTFT and TPOT
      beside;
-  5. a JSON line of the kernels, then the card line, then the result line.
+  6. a JSON line of the kernels, then the card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
 
@@ -100,6 +112,16 @@ CHUNK_LSE_TOL = 2e-5
 # the tensor-core version's distance from the f32 result (bf16 rounding of q, K_hat, V_hat and
 # P): measured 5.3e-4 on `out` and 2.0e-3 on `lse`
 CHUNK_GAP_OUT_TOL, CHUNK_GAP_LSE_TOL = 5e-3, 2e-2
+# causal_partial vs its plain version at the kernel's key tile, `out` and `lse` apart, 10x what an
+# H100 measured. f32: only the summation order differs (measured <= 6.0e-7 on `out`, 9.5e-7 on
+# `lse`). bf16: both round q * scale and P to bf16 at the same places and P against the same
+# running maxima (the plain version over 64-key blocks, the kernel's tile), but a weight's rounding
+# may still fall the other way where the two sums of q . k differ in the last f32 bit; at rows of
+# few keys (early positions) one such weight moves `out` by up to 2^-9 |v| / l: measured 2.1e-3 at
+# the chunk shape (52 of 50 M values past 5e-4) and 2.2e-3 at the admission shape; `lse` 1.9e-6
+CAUSAL_OUT_TOL = {"f32": 1e-5, "bf16": 2e-2}
+CAUSAL_LSE_TOL = 2e-5
+C1_EXACT = 32  # exact channels a side of the repaired routing (pq.outlier_k=32)
 LOGIT_TOL = 0.25  # bf16 model, pq_kernel vs pq: attention agrees to ~1e-6 in f32,
 # then bf16 rounding of the activations compounds over 28 layers
 GEOMETRIES = {  # bench.py:65-107
@@ -118,6 +140,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # one-layer view) and the pages-per-block mode (:1540, `kpp`)
     "pq_paged_attention": ("million_tpu_torch/csrc/pq_paged_attention.cu",
                            "million_tpu/ops/pq_attention_pallas.py:1706 (and :1348, :1540)"),
+    # not a Pallas kernel: the reference's in-chunk partial is plain jnp that XLA fuses
+    "causal_attention": ("million_tpu_torch/csrc/causal_attention.cu",
+                         "million_tpu/models/chunked_prefill.py:95 (_causal_partial, plain jnp)"),
 }
 PATH_GEOMETRIES = ("dm2", "dm4_outlier_c128")
 
@@ -149,13 +174,14 @@ def cuda_ms(fn, iters: int, warm: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def synthetic_cents(L: int, d: int, geom: str, seed: int = 0):
+def synthetic_cents(L: int, d: int, geom: str, seed: int = 0, O=None):
     """bench.py's synthetic codebooks: standard normal, and for the outlier
-    geometries 16 + 16 random exact channels whose centroid components are 0."""
+    geometries 16 + 16 random exact channels whose centroid components are 0
+    (O + O where O is given)."""
     import numpy as np
 
     g = GEOMETRIES[geom]
-    M, C, O = g["M"], g["C"], g["O"]
+    M, C, O = g["M"], g["C"], g["O"] if O is None else O
     rng = np.random.default_rng(seed)
     ck = rng.standard_normal((L, M, C, d // M)).astype(np.float32)
     cv = rng.standard_normal((L, M, C, d // M)).astype(np.float32)
@@ -577,6 +603,155 @@ def paged_phase(dev):
     return rows
 
 
+def causal_phase(dev):
+    """causal_partial vs its plain version at the shapes the paths give it:
+    a 4096-token chunk of four sequences and a 512-token chunk of the six
+    admission slots (llama-3.2-3b: 24 / 8 heads, d=128, bf16), with q and k
+    head slices of one tensor and v token-major as the model's projection
+    lays them out, and at test-tiny width in f32 (the f32 version; the
+    chunked path of tiny_check and a longer chunk). Torch's flash attention
+    with the logsumexp over the same lengths, K and V expanded to the query
+    heads outside the timed region, is the library yardstick; the port never
+    calls it."""
+    import torch
+
+    from million_tpu_torch.ops import causal_attention_kernel as CA
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = {}
+    cases = (("chunk", BS, 24, 8, CHUNK, 128, torch.bfloat16, 20),
+             ("admission", SERVE_SLOTS, 24, 8, ADMIT_CHUNK, 128, torch.bfloat16, 100),
+             ("test-tiny", 2, 4, 2, 4, 16, torch.float32, 100),
+             ("test-tiny long", 2, 4, 2, 1024, 16, torch.float32, 20))
+    for shape, bs, nh, nh_k, nc, d, dt, iters in cases:
+        precision = "bf16" if dt == torch.bfloat16 else "f32"
+        qk = torch.randn((bs, nh + nh_k, nc, d), generator=gen, device=dev).to(dt)
+        q, k = qk[:, :nh], qk[:, nh:]
+        v = torch.randn((bs, nc, nh_k, d), generator=gen, device=dev).to(dt).transpose(1, 2)
+        scale = 1.0 / d**0.5
+
+        def kern():
+            return CA.causal_partial(q, k, v, scale)
+
+        def plain(block=CA.KEY_TILE[precision]):
+            return CA.causal_partial_plain(q, k, v, scale, block=block)
+
+        out_k, lse_k = kern()
+        torch.cuda.synchronize()
+        out_p, lse_p = plain()
+        diff = (out_k - out_p).abs()
+        err_out, err_rms = float(diff.max()), float(diff.square().mean().sqrt())
+        n_past = int((diff > 5e-4).sum())  # values past the history kernel's bf16 limit
+        worst = [int(x) for x in torch.unravel_index(diff.argmax(), diff.shape)]  # (b, head, pos, dim)
+        del diff
+        err_lse = float((lse_k - lse_p).abs().max())
+        rms = float(out_p.square().mean().sqrt())
+        ok = (bool(torch.isfinite(out_k).all() and torch.isfinite(lse_k).all())
+              and err_out <= CAUSAL_OUT_TOL[precision] and err_lse <= CAUSAL_LSE_TOL)
+        n_out = out_p.numel()
+        del out_k, lse_k, out_p, lse_p
+        ms = cuda_ms(kern, iters)
+        plain_ms = cuda_ms(lambda: plain(1024), 3, warm=1)  # the block the paths' plain route takes
+        lib_ms = None
+        if dt == torch.bfloat16:
+            ke, ve = (t.repeat_interleave(nh // nh_k, dim=1) for t in (k, v))
+            lib_ms = cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                q, ke, ve, 0.0, True, False, scale=scale), iters)
+            del ke, ve
+        ops, nbytes = CA.causal_ops(bs, nh, nc, d), CA.causal_bytes(bs, nh, nh_k, nc, d, q.element_size())
+        bound_ms, bound_by = bound_of(nbytes, ops, BF16_OPS_PER_S if precision == "bf16" else F32_OPS_PER_S)
+        rows[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=max(err_out, err_lse), library_ms=lib_ms)
+        log(f"[kernel] causal_attention {precision} {shape}: bs={bs} heads={nh}/{nh_k} nc={nc} d={d} "
+            f"out rms={rms:.3g} out_err={err_out:.3g} (tol {CAUSAL_OUT_TOL[precision]:g}; rms "
+            f"{err_rms:.3g}, {n_past} of {n_out} past 5e-4, worst at (b, head, pos, dim) {worst}) "
+            f"lse_err={err_lse:.3g} (tol {CAUSAL_LSE_TOL:g}) against the plain version over "
+            f"{CA.KEY_TILE[precision]}-key blocks; kernel={ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s) "
+            f"bound={bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
+            f"plain (1024-key blocks)={plain_ms:.3f} ms library (flash attention, causal, lse)="
+            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none in f32'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"causal_attention disagrees with its plain version ({shape}, {precision})")
+        del qk, q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def c1_phase(dev, cfg, params):
+    """The repaired routing: a bf16 model whose arena holds 32 exact K and V
+    channels, more than the tensor-core version of pq_chunk_attention is
+    built for, takes its f32 version (it raised before). The history partial
+    alone against its plain version, then two layers of llama-3.2-3b through
+    a chunked prefill and a paged admission, kernels against plain versions."""
+    import dataclasses
+
+    import torch
+
+    from million_tpu_torch.cache import paged_pq_cache as tpc
+    from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.models.chunked_prefill import _history_partial, chunked_prefill
+    from million_tpu_torch.models.paged_decode import paged_admit_chunked
+    from million_tpu_torch.ops import pq_chunk_attention_kernel as K
+
+    geom, O, L = "dm4_outlier_c128", C1_EXACT, 2
+    M, C = GEOMETRIES[geom]["M"], GEOMETRIES[geom]["C"]
+    nh_k, d = cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=16, O=O), device=dev)
+    # (a) the history partial: 2 sequences x a 512-token chunk over 8,192 tokens
+    n_prev, nc = 8192, ADMIT_CHUNK
+    q = torch.randn((2, cfg.num_heads, nc, d), generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randint(0, C, (2, nh_k, n_prev, M), generator=gen, device=dev, dtype=torch.uint8)
+              for _ in range(2))
+    okw = dict(koidx=cents["k_outlier_idx"][0], voidx=cents["v_outlier_idx"][0],
+               k_outliers=torch.randn((2, nh_k, n_prev, O), generator=gen, device=dev).bfloat16(),
+               v_outliers=torch.randn((2, nh_k, n_prev, O), generator=gen, device=dev).bfloat16())
+    precision = K.history_precision(q, vc, okw["k_outliers"], okw["v_outliers"])
+    before = K.pq_chunk_attention.launches
+    got = K.pq_chunk_history_attention(q, kc, vc, cents["key"][0], cents["value"][0], n_prev, d**-0.5, **okw)
+    torch.cuda.synchronize()
+    launched = K.pq_chunk_attention.launches - before
+    want = _history_partial(q, kc, vc, cents["key"][0], cents["value"][0], n_prev, d**-0.5, **okw)
+    err_out, err_lse = (float((g - w).abs().max()) for g, w in zip(got, want))
+    ok = (precision == "f32" and launched == 1 and err_out <= CHUNK_OUT_TOL["f32"]
+          and err_lse <= CHUNK_LSE_TOL)
+    log(f"[c1] bf16 queries, OK = OV = {O}: history precision {precision!r}, {launched} launch of the "
+        f"f32 version; out_err={err_out:.3g} (tol {CHUNK_OUT_TOL['f32']:g}) lse_err={err_lse:.3g} "
+        f"(tol {CHUNK_LSE_TOL:g}) against its plain version {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the C1 geometry's history partial failed")
+    del q, kc, vc, okw, got, want
+    # (b) two layers of llama-3.2-3b: a chunked prefill (2 x 8,192 tokens in chunks of 4,096)
+    # and a paged admission (one 8,192-token prompt in chunks of 512), kernels vs plain versions
+    cfg2 = dataclasses.replace(cfg, num_layers=L)
+    ids = torch.randint(0, cfg.vocab_size, (2, 2 * CHUNK), generator=gen, device=dev)
+    pqc = PQCacheConfig(bs=2, nh_k=nh_k, d=d, M=M, C=C, Lt=128, N_max=2 * CHUNK, OK=O, OV=O)
+    pcfg = tpc.PagedPQCacheConfig(num_layers=L, nh_k=nh_k, d=d, M=M, C=C, Lt=128, page_size=PAGE_SIZE,
+                                  n_pages=8, max_seqs=1, pages_per_seq=4, OK=O, OV=O)
+    gaps = {}
+    for what in ("chunked prefill", "paged admission"):
+        logits = []
+        for use_kernel in (None, False):
+            if what == "chunked prefill":
+                lg, _ = chunked_prefill(params, cfg2, ids, init_state(pqc, L, device=dev), cents, chunk=CHUNK,
+                                        use_kernel=use_kernel)
+            else:
+                st = tpc.allocate_pages(tpc.init_paged_state(pcfg, device=dev), 0, 4)
+                lg, _ = paged_admit_chunked(params, cfg2, pcfg, 0, ids[0].cpu().numpy(), st, cents,
+                                            chunk=ADMIT_CHUNK, use_kernel=use_kernel)
+            logits.append(lg)
+        if not all(bool(torch.isfinite(x).all()) for x in logits):
+            raise RuntimeError(f"non-finite logits in the C1 {what}")
+        gaps[what] = float((logits[0] - logits[1]).abs().max())
+    log(f"[c1] two layers of llama-3.2-3b in bf16, OK = OV = {O}, {geom} codebooks: max |logit(kernels) - "
+        f"logit(plain versions)| { {k: '%.4g' % v for k, v in gaps.items()} } (tol {LOGIT_TOL})")
+    if max(gaps.values()) > LOGIT_TOL:
+        raise RuntimeError("the C1 geometry's chunked prefill or admission failed")
+    del ids
+    torch.cuda.empty_cache()
+
+
 def tiny_check(dev):
     """Small input: test-tiny generate on the card (kernel) vs on the CPU
     (the kernel's plain version) must give the same greedy tokens."""
@@ -769,7 +944,7 @@ def serving_path(dev, cfg, params, launches):
         got = {k: launches[k][geom]["serving"] for k in wrappers}
         want = {"pq_decode_attention": 0, "pq_chunk_attention": L * (n_chunks - 1),
                 "pq_encode": 2 * L * n_chunks + 2 * flush_steps,
-                "pq_paged_attention": L * sched.ticks_dispatched}
+                "pq_paged_attention": L * sched.ticks_dispatched, "causal_attention": L * n_chunks}
         tokens_ok = set(done) == set(range(S)) and all(
             len(t) == SERVE_NEW_TOKENS and ((0 <= t) & (t < cfg.vocab_size)).all() for t in done.values())
         per_tok = np.asarray(ticks) * 1e3
@@ -812,6 +987,7 @@ def build_model(dev):
 
 def path_wrappers():
     """name -> the wrapper whose `launches` counts that kernel's launches."""
+    from million_tpu_torch.ops.causal_attention_kernel import causal_partial
     from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention_stacked
     from million_tpu_torch.ops.pq_chunk_attention_kernel import pq_chunk_attention
     from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
@@ -819,7 +995,7 @@ def path_wrappers():
 
     return {"pq_decode_attention": pq_codes_attention_stacked,
             "pq_chunk_attention": pq_chunk_attention, "pq_encode": pq_encode_fused_stacked,
-            "pq_paged_attention": pq_paged_attention_stacked}
+            "pq_paged_attention": pq_paged_attention_stacked, "causal_attention": causal_partial}
 
 
 def main_path(dev, cfg, params, launches):
@@ -867,7 +1043,7 @@ def main_path(dev, cfg, params, launches):
         res, peak = drive(geom, "flat", cache, cents, max_new_tokens=NEW_TOKENS, flush_chunk=FLUSH)
         got = {k: launches[k][geom]["flat"] for k in wrappers}
         want = {"pq_decode_attention": L * (NEW_TOKENS - 1), "pq_chunk_attention": 0,
-                "pq_encode": 2 * L + 2 * res.n_flushes, "pq_paged_attention": 0}
+                "pq_encode": 2 * L + 2 * res.n_flushes, "pq_paged_attention": 0, "causal_attention": 0}
         log(f"[generate] {geom} flat: TTFT {res.ttft_s:.3f} s, TPOT {res.tpot_s * 1e3:.3f} ms, "
             f"{BS / res.tpot_s:.1f} tok/s (bs={BS}), flushes={res.n_flushes}, "
             f"launches={got} (want {want}), peak mem {peak}, cache "
@@ -905,7 +1081,8 @@ def main_path(dev, cfg, params, launches):
         got = {k: launches[k][geom]["chunked"] for k in wrappers}
         want = {"pq_decode_attention": L * (CHUNK_NEW_TOKENS - 1),
                 "pq_chunk_attention": L * (n_chunks - 1),
-                "pq_encode": 2 * L * n_chunks + 2 * res.n_flushes, "pq_paged_attention": 0}
+                "pq_encode": 2 * L * n_chunks + 2 * res.n_flushes, "pq_paged_attention": 0,
+                "causal_attention": L * n_chunks}
         counters = (cache["n_codes"], cache["r"])
         log(f"[generate] {geom} chunked (prefill_chunk={CHUNK}, {n_chunks} chunks): TTFT "
             f"{res.ttft_s:.3f} s (flat {ttft[(geom, 'flat')]:.3f} s), TPOT {res.tpot_s * 1e3:.3f} ms, "
@@ -923,7 +1100,7 @@ def main_path(dev, cfg, params, launches):
                                              last_chunk=True, hist_block=1024, use_kernel=use_kernel))
         gap = float((logits[0] - logits[1]).abs().max())
         finite = bool(torch.isfinite(logits[0]).all())
-        log(f"[chunked] {geom}: last-chunk logits, kernel history vs plain history on the card: "
+        log(f"[chunked] {geom}: last-chunk logits, kernel partials vs plain partials on the card: "
             f"max gap {gap:.4g} (tol {LOGIT_TOL}), finite {finite}, shape {tuple(logits[0].shape)}")
         if gap > LOGIT_TOL or not finite or logits[0].shape != (BS, cfg.vocab_size):
             raise RuntimeError(f"chunked last-chunk check failed for {geom}")
@@ -960,21 +1137,26 @@ def main() -> int:
         builds = list(pool.map(cuda_build.build, KERNELS))
     for built in builds:
         usage = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
+        warned = [ln.strip() for ln in built.log.splitlines() if "warning" in ln.lower()]
         log(f"[build] {built.path.name}: nvcc {built.build_s:.2f} s; ptxas: "
-            f"{' | '.join(usage[-4:]) if built.log else 'cached'}")
+            f"{' | '.join(usage[-4:]) if built.log else 'cached'}"
+            f"{'; warnings: ' + ' | '.join(warned) if warned else ''}")
     log(f"[build] {len(builds)} libraries in {time.perf_counter() - t0:.2f} s wall")
 
-    # the paths run a bf16 model, whose history partial takes the tensor-core version
+    # the paths run a bf16 model, whose partials take the tensor-core versions
+    causal = causal_phase(dev)
     rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev).items() if e == "stacked"},
             "pq_paged_attention": paged_phase(dev),
             "pq_encode": encode_phase(dev),
             "pq_chunk_attention": {g: r for (g, shape, pr), r in chunk_phase(dev).items()
-                                   if shape == "chunk" and pr == "bf16"}}
+                                   if shape == "chunk" and pr == "bf16"},
+            "causal_attention": {g: causal["chunk"] for g in PATH_GEOMETRIES}}
     if "--kernels-only" in sys.argv[1:]:
         return 0
     tiny_check(dev)
     tiny_serving_check(dev)
     cfg, params = build_model(dev)
+    c1_phase(dev, cfg, params)
     launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
     main_path(dev, cfg, params, launches)
     serving_path(dev, cfg, params, launches)

@@ -8,7 +8,7 @@ layer, timed on the host clock and then traced with torch.profiler.
 For each geometry (dm2, dm4_outlier_c128) it prints the chunk's time (host
 clock around a synchronised run), the device's busy time, the idle share and
 the kernels that take most device time, the hand-written ones by name
-(pq_chunk_attention*, pq_encode*). Needs a CUDA device.
+(pq_chunk_attention*, causal_*, pq_encode*). Needs a CUDA device.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ holds the activations of the whole prompt at once; chunking bounds that to
 `chunk` tokens. Each chunk runs the normal transformer stack, and its
 attention is the LSE-merge of two partials:
 
-  * causal attention WITHIN the chunk (exact, blockwise over the keys);
+  * causal attention WITHIN the chunk (exact). On the card that is the
+    hand-written kernel of ops/causal_attention_kernel.py, which keeps the
+    scores in registers and skips the tiles above the diagonal; its plain
+    version walks the keys a block at a time;
   * full attention against the QUANTIZED history: the code arena that the
     earlier chunks already wrote. On the card that is the hand-written
     kernel of ops/pq_chunk_attention_kernel.py, which decodes the history a
@@ -48,7 +51,8 @@ from million_tpu_torch.models.llama import (
     _rope,
     _unsupported,
 )
-from million_tpu_torch.ops.pq_attention_ref import NEG_INF, merge_two_partials
+from million_tpu_torch.ops.causal_attention_kernel import causal_partial, causal_partial_plain
+from million_tpu_torch.ops.pq_attention_ref import merge_two_partials
 from million_tpu_torch.ops.pq_chunk_attention_kernel import (
     group_rows,
     history_precision,
@@ -59,53 +63,8 @@ from million_tpu_torch.ops.pq_chunk_attention_kernel import (
 from million_tpu_torch.pq.ops import runtime_encode, zero_channels
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched a @ b with f32 output and accumulation, 16-bit inputs kept in
-    their type on the card."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
-
-
-def _causal_partial(q, k, v, scale: float, block: int = 1024):
-    """Causal attention within the chunk, returning (out, lse) for
-    LSE-merging. Blockwise over the KEY axis, so the score transient is
-    (nc, block) and not (nc, nc). The products are plain matrix products
-    (the reference package leaves them to XLA): 16-bit inputs with f32
-    accumulation for a 16-bit model on the card, f32 otherwise. The GQA
-    group rides the row axis, so no KV head is repeated.
-
-    q (bs, nh, nc, d); k/v (bs, nh_k, nc, d) -> out (bs, nh, nc, d) f32,
-    lse (bs, nh, nc) f32."""
-    bs, nh, nc, d = q.shape
-    nh_k = k.shape[1]
-    G = nh // nh_k
-    block = min(block, nc)
-    if nc % block:
-        block = nc  # odd chunk sizes fall back to one block
-    mm = q.dtype if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16) else torch.float32
-    qf = (q.to(torch.float32) * scale).to(mm).reshape(bs * nh_k, G * nc, d)  # row = g * nc + pos
-    kf = k.to(mm).reshape(bs * nh_k, nc, d)
-    vf = v.to(mm).reshape(bs * nh_k, nc, d)
-    qpos = torch.arange(nc, device=q.device).repeat(G)[:, None]
-    m = torch.full((bs * nh_k, G * nc, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((bs * nh_k, G * nc, d), dtype=torch.float32, device=q.device)
-    for b0 in range(0, nc, block):
-        # one (rows, block) f32 transient, updated in place: scores, then weights
-        sc = _bmm_f32(qf, kf[:, b0:b0 + block].transpose(1, 2))
-        kpos = b0 + torch.arange(block, device=q.device)[None, :]
-        sc.masked_fill_(qpos < kpos, NEG_INF)
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        p = sc.sub_(m_new).exp_()
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc.mul_(alpha).add_(_bmm_f32(p.to(mm), vf[:, b0:b0 + block]))
-        m = m_new
-        del sc, p
-    safe_l = torch.clamp(l, min=1e-30)
-    out = (acc / safe_l).reshape(bs, nh, nc, d)
-    return out, (m + torch.log(safe_l))[..., 0].reshape(bs, nh, nc)
+# the plain in-chunk partial under the name the tests know
+_causal_partial = causal_partial_plain
 
 
 def _history_partial(q, key_codes, value_codes, kcent, vcent, n_prev: int, scale: float,
@@ -121,7 +80,8 @@ def _history_partial(q, key_codes, value_codes, kcent, vcent, n_prev: int, scale
     lse (bs, nh, nc) f32)."""
     out, lse = pq_chunk_attention_plain(
         group_rows(q, key_codes.shape[1], scale), key_codes, value_codes, kcent, vcent,
-        n_prev, hist_block=hist_block, precision=history_precision(q), **outliers)
+        n_prev, hist_block=hist_block, precision=history_precision(
+            q, value_codes, outliers.get("k_outliers"), outliers.get("v_outliers")), **outliers)
     return ungroup_rows(out, lse, q.shape[1])
 
 
@@ -135,7 +95,7 @@ def _prefill_one_chunk(
     pos_offset: int,  # global position of ids[:, 0]
     last_chunk: bool,
     hist_block: int = 4096,
-    use_kernel: bool = True,  # history partial through pq_chunk_history_attention
+    use_kernel: bool = True,  # both partials through their wrappers; False: their plain versions
 ) -> Optional[torch.Tensor]:
     """One chunk through every layer: encode and write the chunk's codes at
     n_codes, attend causally within the chunk and over the history
@@ -173,7 +133,7 @@ def _prefill_one_chunk(
             k[:, :, n4:] if tail else None, v[:, :, n4:] if tail else None,
             k_out=k_out, v_out=v_out,
         )
-        attn, lse_c = _causal_partial(q, k, v, scale)
+        attn, lse_c = (causal_partial if use_kernel else causal_partial_plain)(q, k, v, scale)
         if n_prev:
             history = pq_chunk_history_attention if use_kernel else _history_partial
             out_h, lse_h = history(
@@ -206,11 +166,12 @@ def chunked_prefill(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Prefill `input_ids` in `chunk`-token pieces (a host loop). Returns
     (last-token logits (bs, V) f32, the decode-ready cache). use_kernel=False
-    takes the plain history route on any device; the default takes
-    pq_chunk_history_attention, whose wrapper launches the kernel for CUDA
-    tensors and runs its plain version for CPU tensors. The plain version
-    decodes hist_block history tokens at a time (its memory bound); the
-    kernel walks the history in its own tiles and does not read it."""
+    takes the plain versions of both partials on any device; the default
+    takes their wrappers (causal_partial, pq_chunk_history_attention), which
+    launch the kernels for CUDA tensors and run the plain versions for CPU
+    tensors. The plain history version decodes hist_block history tokens at
+    a time (its memory bound); the kernel walks the history in its own tiles
+    and does not read it."""
     _unsupported(mesh=mesh)
     _check_cents(cents)
     if chunk <= 0 or chunk % WORD:

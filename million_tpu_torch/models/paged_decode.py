@@ -8,7 +8,9 @@ residual window) and window-flush batching: the decode step never encodes;
 the scheduler runs `flush_paged_slots` when a slot's window fills, and
 `paged_admit_chunked` admits long prompts in bounded-memory chunks against
 the quantized history in the slot's pages (through the chunk-history kernel
-of ops/pq_chunk_attention_kernel.py on a per-layer copy of those pages).
+of ops/pq_chunk_attention_kernel.py on a per-layer copy of those pages),
+each chunk attending to itself through the causal kernel of
+ops/causal_attention_kernel.py.
 
 The paged state is updated IN PLACE. Not carried over from the reference,
 because they exist for XLA or Mosaic: `_split_state` and the donated writer
@@ -39,7 +41,7 @@ from million_tpu_torch.cache.paged_pq_cache import (
     token_pages,
 )
 from million_tpu_torch.cache.pq_cache import WORD
-from million_tpu_torch.models.chunked_prefill import _causal_partial, _history_partial
+from million_tpu_torch.models.chunked_prefill import _history_partial
 from million_tpu_torch.models.llama import (
     SUBSPACE_LAYOUT,
     ModelConfig,
@@ -54,6 +56,7 @@ from million_tpu_torch.models.llama import (
     _rope_per_seq,
     _unsupported,
 )
+from million_tpu_torch.ops.causal_attention_kernel import causal_partial, causal_partial_plain
 from million_tpu_torch.ops.pq_attention_ref import causal_attention, merge_two_partials
 from million_tpu_torch.ops.pq_chunk_attention_kernel import pq_chunk_history_attention
 from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
@@ -277,6 +280,7 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
     scale = 1.0 / (cfg.head_dim**0.5)
     scratch = state["key_pool"].shape[1] - 1
     history = pq_chunk_history_attention if use_kernel is not False else _history_partial
+    causal = causal_partial if use_kernel is not False else causal_partial_plain
     x = None
     for s0 in range(0, n_pad, chunk):
         nc = min(chunk, n_pad - s0)
@@ -293,7 +297,7 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
             lp = _layer(params, i)
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
             q, k, v = _qkv(h, lp, cfg, rope)
-            attn, lse_c = _causal_partial(q, k, v, scale)
+            attn, lse_c = causal(q, k, v, scale)
             if s0:
                 hokw = {}
                 if "key_outlier_pool" in state:
@@ -354,7 +358,7 @@ def paged_admit_chunked(
     *,
     chunk: int = 2048,
     hist_block: int = 2048,  # history block of the plain history route
-    use_kernel: Optional[bool] = None,  # False: the plain history route on any device
+    use_kernel: Optional[bool] = None,  # False: the plain versions of both partials on any device
     mesh=None,
 ) -> Tuple[torch.Tensor, PagedState]:
     """Host-scheduled chunked admission of one long prompt into a slot's

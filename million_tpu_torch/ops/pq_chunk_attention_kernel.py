@@ -18,7 +18,8 @@ as the reference of the other. "bf16": q, the decoded K and V and the softmax
 weights rounded to bf16, f32 accumulation, on the tensor cores (wgmma, with
 producer warpgroups decoding the next tile of the history while consumer
 warpgroups multiply this one): how a 16-bit model's own attention products run on the
-card, and what pq_chunk_history_attention picks for 16-bit queries. The plain
+card, and what pq_chunk_history_attention picks for 16-bit queries wherever
+the geometry is one it is built for (mma_geometry; the others take "f32"). The plain
 version takes the same argument and rounds at the same places, so it stays
 the kernel's arithmetic in PyTorch on either setting.
 
@@ -208,8 +209,7 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, n_codes,
             raise ValueError("v_outliers / voidx shapes")
         vo_p, vidx_p = v_outliers.data_ptr(), voidx.data_ptr()
     mma = int(precision == "bf16")
-    if mma and (d not in MMA_HEAD_DIMS or OK > MMA_MAX_OK or OV > MMA_MAX_OV or OK % 2 or OV % 2
-                or M_v % 4):
+    if mma and not mma_geometry(d, M_v, OK, OV):
         raise ValueError(f"the bf16 kernel is built for d in {MMA_HEAD_DIMS}, even OK <= "
                          f"{MMA_MAX_OK}, even OV <= {MMA_MAX_OV} and M_v % 4 == 0, got d={d}, "
                          f"OK={OK}, OV={OV}, M_v={M_v}")
@@ -283,10 +283,27 @@ def pq_chunk_attention(
 pq_chunk_attention.launches = 0
 
 
-def history_precision(q: torch.Tensor) -> str:
-    """The precision of the history partial for a model whose queries are q:
-    16-bit models take the tensor-core product, f32 models the f32 one."""
-    return "bf16" if q.dtype in (torch.bfloat16, torch.float16) else "f32"
+def mma_geometry(d: int, M_v: int, OK: int = 0, OV: int = 0) -> bool:
+    """Whether the tensor-core version is built for this geometry: head dim
+    d, M_v value subspaces, OK and OV exact channels."""
+    return (d in MMA_HEAD_DIMS and OK <= MMA_MAX_OK and OV <= MMA_MAX_OV and OK % 2 == 0
+            and OV % 2 == 0 and M_v % 4 == 0)
+
+
+def history_precision(q: torch.Tensor, value_codes: Optional[torch.Tensor] = None,
+                      k_outliers: Optional[torch.Tensor] = None,
+                      v_outliers: Optional[torch.Tensor] = None) -> str:
+    """The precision of the history partial for a model whose queries are q
+    (..., d), over an arena whose value codes are (..., M_v) (not checked when
+    None) with these exact-channel slabs (..., OK) and (..., OV): 16-bit
+    models take the tensor-core product where it is built for the geometry
+    (mma_geometry), f32 models and the other geometries the f32 one, on the
+    card and in the plain version alike."""
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        return "f32"
+    M_v = 4 if value_codes is None else value_codes.shape[-1]
+    OK, OV = (0 if t is None else t.shape[-1] for t in (k_outliers, v_outliers))
+    return "bf16" if mma_geometry(q.shape[-1], M_v, OK, OV) else "f32"
 
 
 def group_rows(q: torch.Tensor, nh_k: int, scale: float) -> torch.Tensor:
@@ -328,14 +345,16 @@ def pq_chunk_history_attention(
     """GQA wrapper of pq_chunk_attention for the chunked-prefill call site:
     regroups the chunk's queries by KV head, rows ordered (q_pos, group), and
     undoes it on the way out. precision None picks "bf16" for 16-bit queries
-    and "f32" otherwise (history_precision); hist_block as in
+    where the tensor-core version is built for the geometry and "f32"
+    otherwise (history_precision); hist_block as in
     pq_chunk_attention. Returns (out (bs, nh, nc, d) f32
     normalised, lse (bs, nh, nc) f32)."""
     nh = q.shape[1]
     out, lse = pq_chunk_attention(
         group_rows(q, key_codes.shape[1], scale), key_codes, value_codes, key_cents,
         value_cents, n_prev, koidx=koidx, k_outliers=k_outliers, voidx=voidx,
-        v_outliers=v_outliers, precision=precision or history_precision(q),
+        v_outliers=v_outliers,
+        precision=precision or history_precision(q, value_codes, k_outliers, v_outliers),
         hist_block=hist_block)
     return ungroup_rows(out, lse, nh)
 

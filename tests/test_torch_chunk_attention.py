@@ -354,3 +354,68 @@ def test_cuda_tensor_core_kernel_rejects(rng, cuda_device):
         K.pq_chunk_history_attention(*dargs, 64, 0.2, precision="bf16")
     out, _ = K.pq_chunk_history_attention(*dargs, 64, 0.2)  # the f32 kernel takes d = 32
     assert out.shape == c["q"].shape
+
+
+@pytest.mark.parametrize("d,M_v,OK,OV,want", [
+    (128, 32, 32, 32, "f32"),  # 32 exact channels a side (pq.outlier_k=32): past the bf16 version's 16
+    (128, 32, 16, 16, "bf16"),
+    (128, 32, 0, 0, "bf16"),
+    (64, 16, 32, 0, "f32"),
+    (128, 32, 0, 18, "f32"),
+    (128, 32, 3, 3, "f32"),  # odd exact channels
+    (128, 30, 0, 0, "f32"),  # M_v % 4 != 0
+    (32, 8, 0, 0, "f32"),  # a head dim the bf16 version is not built for
+])
+def test_history_precision_routes_geometries_the_bf16_version_lacks(d, M_v, OK, OV, want):
+    """A 16-bit model takes the tensor-core history partial only where that
+    version is built for the geometry, the f32 version (limited by d, M and
+    its shared memory alone) elsewhere; f32 models always take the f32 one.
+    Both routes ask history_precision, so the card and the CPU agree."""
+    q = torch.zeros((1, 6, 4, d), dtype=torch.bfloat16)
+    vc = torch.zeros((1, 2, 64, M_v), dtype=torch.uint8)
+    slab = lambda o: torch.zeros((1, 2, 64, o), dtype=torch.bfloat16) if o else None  # noqa: E731
+    assert K.history_precision(q, vc, slab(OK), slab(OV)) == want
+    assert K.mma_geometry(d, M_v, OK, OV) == (want == "bf16")
+    assert K.history_precision(q.float(), vc, slab(OK), slab(OV)) == "f32"
+
+
+def test_c1_geometry_through_both_history_routes(rng):
+    """OK = OV = 32 with 16-bit queries: the GQA wrapper and the plain history
+    route of the chunked prefill both take the f32 precision and agree."""
+    c = make_case(rng, G=3, nc=6, d=64, M=16, C=64, O=32, N=128)
+    args, kw = port_args(c)
+    q16 = args[0].bfloat16()
+    got = K.pq_chunk_history_attention(q16, *args[1:], 100, 0.125, **kw)
+    want = K.pq_chunk_history_attention(q16.float(), *args[1:], 100, 0.125, precision="f32", **kw)
+    plain = _history_partial(q16, *args[1:], 100, 0.125, hist_block=32, **kw)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        np.testing.assert_allclose(p.numpy(), w.numpy(), atol=1e-5)
+
+
+# the C1 geometry: 32 exact channels a side, which the bf16 version is not built for
+C1_CASES = {
+    "c1_dm4_c128_G3": dict(G=3, nc=100, d=128, M=32, C=128, O=32, N=512),
+    "c1_d64_c256_G4": dict(G=4, nc=33, d=64, M=16, C=256, O=32, N=256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(C1_CASES))
+def test_cuda_c1_geometry_takes_the_f32_version(rng, cuda_device, case):
+    """16-bit queries with OK = OV = 32 launch the f32 version (they raised
+    before), which matches the CPU's plain version of the same precision."""
+    c = make_case(rng, bs=2, **C1_CASES[case])
+    N = c["kc"].shape[-1]
+    scale = 1.0 / c["q"].shape[-1] ** 0.5
+    args, kw = port_args(c)
+    dargs, dkw = port_args(c, cuda_device)
+    args[0], dargs[0] = args[0].bfloat16(), dargs[0].bfloat16()
+    for n_prev in (1, 127, N):
+        want = K.pq_chunk_history_attention(*args, n_prev, scale, **kw)
+        before = K.pq_chunk_attention.launches
+        got = K.pq_chunk_history_attention(*dargs, n_prev, scale, **dkw)
+        torch.cuda.synchronize()
+        assert K.pq_chunk_attention.launches == before + 1
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4, err_msg=f"n_prev={n_prev}")

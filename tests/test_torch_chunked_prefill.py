@@ -268,3 +268,50 @@ def test_counters_advance_once_per_chunk(rng, params, monkeypatch):
     ids = torch.from_numpy(rng.integers(0, TCFG.vocab_size, (1, 42)))
     tcp.chunked_prefill(tp, TCFG, ids, caches(gkw, bs=1)[1], tcents, chunk=16)
     assert seen == [(16, 16)] * L + [(32, 10)] * L
+
+
+def test_bf16_model_with_32_exact_channels(rng, monkeypatch):
+    """A 16-bit model with 32 exact K and V channels (pq.outlier_k=32), a
+    geometry the bf16 history kernel is not built for: every history partial
+    takes the f32 precision (on the card the f32 kernel, where it raised
+    before), and the logits stay within the 5e-2 that million_tpu's kernel
+    route (int8 tables, interpret mode) is held to with outliers."""
+    import dataclasses
+
+    from million_tpu_torch.ops import pq_chunk_attention_kernel as K
+
+    geom = dict(num_layers=2, hidden_size=128, intermediate_size=256, num_heads=4, num_kv_heads=2,
+                head_dim=64, vocab_size=256)
+    jcfg = dataclasses.replace(JCFG, dtype=jnp.bfloat16, **geom)
+    tcfg = dataclasses.replace(TCFG, dtype=torch.bfloat16, **geom)
+    jp = jl.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = convert.params_from_numpy(jax.tree.map(lambda a: np.asarray(a, np.float32), jp), torch.bfloat16,
+                                   device="cpu")
+    d, M, C, O, n_layers = 64, 16, 64, 32, 2
+    c = {"key": rng.standard_normal((n_layers, M, C, d // M)).astype(np.float32),
+         "value": rng.standard_normal((n_layers, M, C, d // M)).astype(np.float32)}
+    for side, name in (("key", "k_outlier_idx"), ("value", "v_outlier_idx")):
+        idx = np.stack([np.sort(rng.choice(d, O, replace=False)) for _ in range(n_layers)]).astype(np.int32)
+        c[name] = idx
+        for li in range(n_layers):
+            for ch in idx[li]:
+                c[side][li, ch % M, :, ch // M] = 0.0
+    kw = dict(bs=1, nh_k=2, d=d, M=M, C=C, Lt=LT, N_max=N_MAX, OK=O, OV=O)
+    jc = j_init_state(JPQCfg(dtype=jnp.bfloat16, **kw), n_layers)
+    tc = init_state(PQCacheConfig(dtype=torch.bfloat16, **kw), n_layers, device="cpu")
+    ids = rng.integers(0, 256, (1, 50))
+    seen = []
+    plain = K.pq_chunk_attention_plain
+
+    def spy(*a, **k):
+        seen.append(k["precision"])
+        return plain(*a, **k)
+
+    monkeypatch.setattr(K, "pq_chunk_attention_plain", spy)
+    lt, _ = tcp.chunked_prefill(tp, tcfg, torch.from_numpy(ids), tc, convert.cents_from_numpy(c, device="cpu"),
+                                chunk=16, hist_block=16)
+    assert seen == ["f32"] * (n_layers * 3)  # every layer of the three chunks with a history
+    lj, _ = jcp.chunked_prefill(jp, jcfg, jnp.asarray(ids, jnp.int32), jc,
+                                jl.build_tables({k: jnp.asarray(v) for k, v in c.items()}), chunk=16,
+                                hist_block=16, use_kernel=True)
+    np.testing.assert_allclose(lt.float().numpy(), np.asarray(lj, np.float32), rtol=5e-2, atol=5e-2)

@@ -51,7 +51,7 @@ BANNED_IN_CUDA = ("torch/", "ATen", "cublas", "cudnn", "cutlass")
 
 
 @pytest.mark.parametrize("name", ["pq_decode_attention", "pq_chunk_attention", "pq_encode",
-                                  "pq_paged_attention"])
+                                  "pq_paged_attention", "causal_attention"])
 def test_cuda_sources_have_a_plain_c_interface(name):
     """Each kernel source exists, exports its entry point with C linkage and
     includes neither PyTorch's headers nor a library's kernels."""
@@ -66,13 +66,17 @@ def test_shared_cuda_headers_are_clean_and_hashed(tmp_path, monkeypatch):
     and an edit of one changes the name of every library built from them."""
     from million_tpu_torch.ops import cuda_build
 
-    headers = sorted((ROOT / "million_tpu_torch" / "csrc").glob("*.cuh"))
-    assert [h.name for h in headers] == ["pq_attention_passes.cuh"]
-    text = headers[0].read_text()
-    for banned in BANNED_IN_CUDA:
-        assert banned not in text, banned
-    for name in ("pq_decode_attention", "pq_paged_attention"):
-        assert '#include "pq_attention_passes.cuh"' in (headers[0].parent / f"{name}.cu").read_text()
+    csrc = ROOT / "million_tpu_torch" / "csrc"
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["hopper_mma.cuh", "pq_attention_passes.cuh"]
+    for h in headers:
+        for banned in BANNED_IN_CUDA:
+            assert banned not in h.read_text(), (h.name, banned)
+    # the passes of the decode kernels; the wgmma and mbarrier helpers of the tensor-core kernels
+    for header, names in (("pq_attention_passes.cuh", ("pq_decode_attention", "pq_paged_attention")),
+                          ("hopper_mma.cuh", ("pq_chunk_attention", "causal_attention"))):
+        for name in names:
+            assert f'#include "{header}"' in (csrc / f"{name}.cu").read_text(), (name, header)
 
     def built_name(header_text):
         """The library name build() settles on, with nvcc and the loader stubbed."""
@@ -104,10 +108,10 @@ def test_modules_import_without_building():
         pytest.skip("with a card, an earlier test of this process may have built the kernels")
     from million_tpu_torch.models import chunked_prefill  # noqa: F401
     from million_tpu_torch.models import paged_decode  # noqa: F401
-    from million_tpu_torch.ops import (pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel,
-                                       pq_paged_attention_kernel)
+    from million_tpu_torch.ops import (causal_attention_kernel, pq_attention_kernel, pq_chunk_attention_kernel,
+                                       pq_encode_kernel, pq_paged_attention_kernel)
     from million_tpu_torch.runtime import scheduler  # noqa: F401
 
-    for mod in (pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel,
+    for mod in (causal_attention_kernel, pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel,
                 pq_paged_attention_kernel):
         assert mod._lib is None

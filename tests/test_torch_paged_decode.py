@@ -359,3 +359,47 @@ def test_unported_routes_raise(rng, params):
         tpd.flush_paged_slots(tcfg, tst, tt, torch.tensor([True, False]), mesh=object())
     with pytest.raises(NotImplementedError):
         tpd.paged_admit_chunked(tp, TCFG, tcfg, 0, np.arange(8), tst, tt, chunk=4, mesh=object())
+
+
+def test_bf16_admission_with_32_exact_channels(rng, monkeypatch):
+    """A 16-bit model with 32 exact K and V channels (pq.outlier_k=32), a
+    geometry the bf16 history kernel is not built for: the admission's
+    history partials take the f32 precision (on the card the f32 kernel,
+    where it raised before), and the logits stay within the 5e-2 of
+    million_tpu's kernel route with outlier pools."""
+    from million_tpu_torch.ops import pq_chunk_attention_kernel as K
+
+    geom = dict(GEOM, hidden_size=128, intermediate_size=256, head_dim=64)
+    jcfg = dataclasses.replace(JCFG, dtype=jnp.bfloat16, **geom)
+    tcfg = dataclasses.replace(TCFG, dtype=torch.bfloat16, **geom)
+    jp = jl.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = convert.params_from_numpy(jax.tree.map(lambda a: np.asarray(a, np.float32), jp), torch.bfloat16,
+                                   device="cpu")
+    d, m, O = 64, 16, 32
+    c = {"key": rng.standard_normal((L, m, C, d // m)).astype(np.float32),
+         "value": rng.standard_normal((L, m, C, d // m)).astype(np.float32)}
+    for side, name in (("key", "k_outlier_idx"), ("value", "v_outlier_idx")):
+        idx = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
+        c[name] = np.stack([idx] * L)
+        for ch in idx:
+            c[side][:, ch % m, :, ch // m] = 0.0
+    pool = dict(POOL, d=d, M=m, OK=O, OV=O)
+    jpcfg = jpc.PagedPQCacheConfig(dtype=jnp.bfloat16, **pool)
+    tpcfg = tpc.PagedPQCacheConfig(dtype=torch.bfloat16, **pool)
+    jst, tst = fresh(jpcfg, tpcfg, [3])
+    prompt = rng.integers(0, 300, 275)
+    seen = []
+    plain = K.pq_chunk_attention_plain
+
+    def spy(*a, **k):
+        seen.append(k["precision"])
+        return plain(*a, **k)
+
+    monkeypatch.setattr(K, "pq_chunk_attention_plain", spy)
+    lt, _ = tpd.paged_admit_chunked(tp, tcfg, tpcfg, 0, prompt, tst, convert.cents_from_numpy(c, device="cpu"),
+                                    chunk=128)
+    assert seen == ["f32"] * (L * 2)  # every layer of the two chunks with a history
+    lj, _ = jpd.paged_admit_chunked(jp, jcfg, jpcfg, 0, prompt.astype(np.int32), jst,
+                                    jl.build_tables({k: jnp.asarray(v) for k, v in c.items()}), chunk=128,
+                                    use_kernel=True)
+    np.testing.assert_allclose(lt.float().numpy(), np.asarray(lj, np.float32), rtol=5e-2, atol=5e-2)
