@@ -2,7 +2,7 @@
 """Smoke run of million_tpu_torch on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                 # the whole run
-    python3 chip_smoke.py --kernels-only  # phases 1-3, no result line
+    python3 chip_smoke.py --kernels-only  # phases 1-3 and the odd exact channels, no result line
 
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
@@ -39,10 +39,12 @@ result line:
        projection lays them out, and in f32 at test-tiny width; torch's flash
        attention with the logsumexp over the same lengths as the library
        yardstick;
-  4. the fault repaired in the history partial's routing: a bf16 model with
-     32 exact channels a side (a geometry the tensor-core version of
-     pq_chunk_attention is not built for) takes its f32 version, alone and
-     in a chunked prefill and a paged admission of two layers of
+  4. the two faults repaired since: pq_decode_attention and
+     pq_paged_attention with odd exact-channel counts (OK = OV = 7 and 15)
+     against their plain versions; and the history partial's routing, where
+     a bf16 model with 32 exact channels a side (a geometry the tensor-core
+     version of pq_chunk_attention is not built for) takes its f32 version,
+     alone and in a chunked prefill and a paged admission of two layers of
      llama-3.2-3b, each against the plain route;
   5. the main paths, at the full width of llama-3.2-3b (28 layers, random
      weights from a seed, bench.py's synthetic codebooks), 4 requests of
@@ -669,12 +671,87 @@ def causal_phase(dev):
             f"{CA.KEY_TILE[precision]}-key blocks; kernel={ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s) "
             f"bound={bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
             f"plain (1024-key blocks)={plain_ms:.3f} ms library (flash attention, causal, lse)="
-            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none in f32'} {'ok' if ok else 'FAIL'}")
+            f"{'%.4f ms (kernel / library %.3f)' % (lib_ms, ms / lib_ms) if lib_ms is not None else 'none in f32'} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"causal_attention disagrees with its plain version ({shape}, {precision})")
         del qk, q, k, v
         torch.cuda.empty_cache()
     return rows
+
+
+def c4_phase(dev):
+    """The repaired odd exact-channel counts: pq_decode_attention (B1) and
+    pq_paged_attention (B4) with OK = OV = 7 and 15 (dm4_outlier_c128
+    codebooks, llama-3.2-3b's group), each against its plain version at
+    PAGED_TOL on `out` and `lse`. The flat arena holds 8,191 tokens a row, so
+    most tiles' outlier rows start off a 16-byte boundary; the paged case has
+    ragged lengths and an empty slot."""
+    import torch
+
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.ops import pq_attention_kernel as K
+    from million_tpu_torch.ops import pq_paged_attention_kernel as P
+
+    nh_k, G, d, L, layer, Lt = 8, 3, 128, 2, 1, 128
+    geom = "dm4_outlier_c128"
+    M, C = GEOMETRIES[geom]["M"], GEOMETRIES[geom]["C"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ps, pps, n_pages, slots = PAGE_SIZE, 4, 24, SERVE_SLOTS
+    lens, live_rows = [8192, 8192, 5000, 2049, 300, 0], [97, 128, 1, 33, 5, 0]
+    N, n_codes = 8191, 8000
+
+    def compare(what, got, want):
+        err_out = float((got[0] - want[0]).abs().max())
+        err_lse = float((got[1] - want[1]).abs().max())
+        ok = bool(torch.isfinite(got[0]).all()) and max(err_out, err_lse) <= PAGED_TOL
+        log(f"[c4] {what}: out_err={err_out:.3g} lse_err={err_lse:.3g} (tol {PAGED_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"odd exact channels: {what} disagrees with its plain version")
+
+    for O in (7, 15):
+        cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=18, O=O), device=dev)
+        ocw = dict(k_oidx=cents["k_outlier_idx"], v_oidx=cents["v_outlier_idx"])
+        # B1: bs 4 over a flat arena of N = 8,191 tokens, 8,000 of them codes, 97 residual rows
+        q = torch.randn((BS, nh_k, G, d), generator=gen, device=dev) / d**0.5
+        kc, vc = (torch.randint(0, C, (L, BS, nh_k, N, M), generator=gen, device=dev, dtype=torch.uint8)
+                  for _ in range(2))
+        okw = dict(ocw, k_outliers=torch.randn((L, BS, nh_k, N, O), generator=gen, device=dev).bfloat16(),
+                   v_outliers=torch.randn((L, BS, nh_k, N, O), generator=gen, device=dev).bfloat16(),
+                   k_residual=torch.randn((L, BS, nh_k, Lt, d), generator=gen, device=dev).bfloat16(),
+                   v_residual=torch.randn((L, BS, nh_k, Lt, d), generator=gen, device=dev).bfloat16(),
+                   r=RESIDUAL_ROWS)
+        args = (q, kc, vc, cents["key"], cents["value"], layer, n_codes)
+        got = K.pq_codes_attention_stacked(*args, **okw)
+        torch.cuda.synchronize()
+        compare(f"pq_decode_attention OK = OV = {O}, bs={BS} N_max={N} n_codes={n_codes}", got,
+                K.pq_codes_attention_plain(*args, **okw, n_sm=n_sm))
+        del kc, vc, okw
+        # B4: six slots over 2048-token pages, ragged lengths and an empty slot
+        q = torch.randn((slots, nh_k, G, d), generator=gen, device=dev) / d**0.5
+        kp, vp = (torch.randint(0, C, (L, n_pages + 1, nh_k, ps, M), generator=gen, device=dev,
+                                dtype=torch.uint8) for _ in range(2))
+        table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(19))[: slots * pps]
+        table = table.reshape(slots, pps).to(torch.int32)
+        for b, n in enumerate(lens):
+            table[b, -(-n // ps):] = -1
+        pkw = dict(ocw, k_outliers=torch.randn((L, n_pages + 1, nh_k, ps, O), generator=gen, device=dev).bfloat16(),
+                   v_outliers=torch.randn((L, n_pages + 1, nh_k, ps, O), generator=gen, device=dev).bfloat16(),
+                   k_residual=torch.randn((L, slots, nh_k, Lt, d), generator=gen, device=dev).bfloat16(),
+                   v_residual=torch.randn((L, slots, nh_k, Lt, d), generator=gen, device=dev).bfloat16(),
+                   r=torch.tensor(live_rows, dtype=torch.int32, device=dev))
+        args = (q, kp, vp, cents["key"], cents["value"], layer, table.to(dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+        got = P.pq_paged_attention_stacked(*args, **pkw)
+        torch.cuda.synchronize()
+        compare(f"pq_paged_attention OK = OV = {O}, lengths {lens}", got,
+                P.pq_paged_attention_plain(*args, **pkw, n_sm=n_sm))
+        if not (bool((got[0][-1] == 0).all()) and bool((got[1][-1] == -1e30).all())):
+            raise RuntimeError(f"odd exact channels: the empty slot is not (0, -1e30) (OK = OV = {O})")
+        del kp, vp, pkw
+        torch.cuda.empty_cache()
 
 
 def c1_phase(dev, cfg, params):
@@ -1151,6 +1228,7 @@ def main() -> int:
             "pq_chunk_attention": {g: r for (g, shape, pr), r in chunk_phase(dev).items()
                                    if shape == "chunk" and pr == "bf16"},
             "causal_attention": {g: causal["chunk"] for g in PATH_GEOMETRIES}}
+    c4_phase(dev)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     tiny_check(dev)

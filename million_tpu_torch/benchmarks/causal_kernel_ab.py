@@ -83,7 +83,11 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         for i, src in enumerate(args.other):
             libs[str(src)] = build_other(src, Path(tmp), i)
-    this = C._lib
+    this, this_plan = C._lib, C.causal_smem_plan
+    # each source is held to its own shared-memory plan (the wrapper checks the library against it)
+    plans = {name: (this_plan if name == "this" else
+                    lambda d, precision, lib=lib: lib.causal_attention_smem(d, int(precision == "bf16")))
+             for name, lib in libs.items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     try:
         for shape, (bs, nc) in SHAPES.items():
@@ -93,11 +97,11 @@ def main(argv=None):
             want = C.causal_partial_plain(q, k, v, D**-0.5, block=C.KEY_TILE["bf16"])
             errs, times = {}, []
             for name, lib in libs.items():
-                C._lib = lib
+                C._lib, C.causal_smem_plan = lib, plans[name]
                 got = C.causal_partial(q, k, v, D**-0.5)
                 errs[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
             for name in list(libs) + list(libs)[::-1]:
-                C._lib = libs[name]
+                C._lib, C.causal_smem_plan = libs[name], plans[name]
                 times.append((name, cuda_ms(lambda: C.causal_partial(q, k, v, D**-0.5), args.iters)))
             ops = C.causal_ops(bs, NH, nc, D)
             bound = max(ops / BF16_OPS_PER_S, C.causal_bytes(bs, NH, NH_K, nc, D) / HBM_BYTES_PER_S) * 1e3
@@ -105,7 +109,7 @@ def main(argv=None):
                 f"{n} {t:.4f} ms ({ops / t / 1e9:.1f} TFLOP/s)" for n, t in times)
                 + f"; bound {bound:.4f} ms; max error against the plain version {errs}; {card}")
     finally:
-        C._lib = this
+        C._lib, C.causal_smem_plan = this, this_plan
 
 
 if __name__ == "__main__":

@@ -42,19 +42,30 @@
 //   arithmetic f32, so it differs from its plain version only by summation
 //   order.
 // - bf16 inputs (16-bit models): tensor cores, the consumer side of the
-//   history kernel's tensor-core version without its decode. A producer
-//   warpgroup copies 64-key K and V tiles with cp.async, 16 bytes a copy, straight
-//   into the layout wgmma reads (8 x 8 core matrices of 128 bytes, no
-//   swizzle: byte (g * 64 + key) * 16 holds dims 8 g .. 8 g + 7 of a key),
-//   into a ring of four stages with a full and an empty mbarrier each (a
-//   thread's copies arrive on the full barrier by themselves when they land,
-//   so the consumers never wait for the producer to issue later tiles); keys
-//   past nc are zero-filled by the copy. Two consumer warpgroups of 64 rows
-//   (setmaxnreg gives them the producers' registers) keep their query
-//   fragments in registers and per tile issue S(t) = Q K^T (m64n64k16) and
-//   O += P(t - 1) V(t - 1) (m64n{d}k16, P straight from the score registers)
-//   as one batch, then mask and run the online softmax of tile t while the
-//   other warpgroup's batch runs. Rounding as the plain
+//   history kernel's tensor-core version without its decode. Copying K and V
+//   sets its time (a block of 128 rows rereads every key under its diagonal,
+//   3.3 GB of tiles from L2 at the chunk shape), so the copies are TMA's and
+//   shared: the two row blocks of one (b, KV head) that walk the same keys
+//   form a cluster of two, and one TMA multicast puts each K or V tile both
+//   blocks need into both blocks' shared memory (rank 0 copies the K tiles,
+//   rank 1 the V tiles), which halves what L2 hands out; the later block's
+//   extra tiles, and the tiles of a last block with no partner, are copied
+//   by that block alone. One elected producer thread issues the copies:
+//   boxes of 64 dims (128 bytes, whole L2 sectors) x 64 keys over the
+//   strided K and V views (rank-4 tensor maps built on the host: d, nc,
+//   nh_k, bs with their byte strides; keys past nc zero-filled), written
+//   with the 128-byte swizzle that wgmma's descriptors read (32 bytes at d =
+//   16), into a ring of four stages. A stage has a full mbarrier (this
+//   block's arrival with the tile's bytes; both blocks' copies complete on
+//   it) and an empty one (each consumer warpgroup of both blocks arrives
+//   once the tile's P V is done, so a multicast never overwrites a stage the
+//   partner still reads).
+//   Two consumer warpgroups of 64 rows (setmaxnreg gives them the
+//   producers' registers) keep their query fragments in registers and per
+//   tile issue S(t) = Q K^T (m64n64k16) and O += P(t - 1) V(t - 1)
+//   (m64n{d}k16, P straight from the score registers) as one batch, then
+//   mask and run the online softmax of tile t while the other warpgroup's
+//   batch runs. Rounding as the plain
 //   version on the card: q * scale in f32 rounded to bf16, f32 sums, P =
 //   exp(S - running max) rounded to bf16 for the P V product, row sums from
 //   the f32 P. d = 64 issues one more score k-step with zero query fragments
@@ -62,6 +73,7 @@
 //   shape, and ptxas of CUDA 12.8 once gave them one set of registers in the
 //   history kernel (pq_chunk_attention.cu).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time (no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -258,7 +270,9 @@ __global__ void __launch_bounds__(THREADS, 1) causal_f32_kernel(CausalParams p) 
 #define PRODUCER_REGS 56               // setmaxnreg moves registers from the producers to the consumers
 #define CONSUMER_REGS 216
 #define STAGES 4                       // K/V tiles in flight
-#define SMEM_HEAD 128                  // the full and empty mbarriers
+#define SMEM_HEAD 1088                 // the full and empty mbarriers, and room to align the tiles to 1024 bytes
+#define CLUSTER 2                      // row blocks that share their K/V tiles
+#define SWIZZLE_MAX 128                // bytes of a key's dims in one TMA box: the 128-byte swizzle
 static_assert(MQ == BQ, "both versions cut the rows into blocks of the same size");
 static_assert(SMEM_HEAD >= 2 * STAGES * 8, "mbarriers");
 static_assert(128 * PRODUCER_REGS + CONS_THREADS * CONSUMER_REGS <= 65536, "register file");
@@ -267,76 +281,97 @@ static_assert(128 * PRODUCER_REGS + CONS_THREADS * CONSUMER_REGS <= 65536, "regi
 // K tile and a V tile, NT keys of d bf16 each
 static long mma_smem(int d) { return SMEM_HEAD + (long)STAGES * 2 * NT * d * 2; }
 
-// 16 bytes from global to shared memory, asynchronously; src_bytes = 0
-// writes 16 zero bytes and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
+// The swizzle of a K or V tile: a TMA box holds `sw` bytes of dims (sw / 2
+// of them) of NT keys, one key a row, its 16-byte pieces permuted within
+// each 8 rows (the 128-, 64- or 32-byte swizzle, as wide as d allows); a
+// tile is d * 2 / sw such boxes, NT * sw bytes apart. The wgmma descriptors
+// read that layout: layout type 1 (128 B), 2 (64 B) or 3 (32 B).
+__host__ __device__ __forceinline__ int swizzle_bytes(int d) { return d * 2 < SWIZZLE_MAX ? d * 2 : SWIZZLE_MAX; }
+
+// Row blocks of the tensor-core version: blockIdx.x = bx takes rows
+// (X - 1 - bx) * MQ .. + MQ of its (b, h), X = ceil(QR / MQ), so the longest
+// blocks start first; the grid is X rounded up to a whole number of
+// clusters, and a block past the rows (bx = X when X is odd) has no tiles.
+// Blocks 2 j and 2 j + 1 form a cluster, the longer one its rank 0. The K/V
+// tiles block bx needs: its keys are 0 .. pos(last row).
+__host__ __device__ __forceinline__ int row_blocks(int QR) { return (QR + MQ - 1) / MQ; }
+__host__ __device__ __forceinline__ int grid_blocks(int QR) {
+  return (row_blocks(QR) + CLUSTER - 1) / CLUSTER * CLUSTER;
+}
+__host__ __device__ __forceinline__ int block_tiles(int QR, int G, int nc, int bx) {
+  const int rb = row_blocks(QR) - 1 - bx;
+  if (rb < 0) return 0;
+  const int last_row = ((rb + 1) * MQ < QR ? (rb + 1) * MQ : QR) - 1;
+  const int n_keys = last_row / G + 1 < nc ? last_row / G + 1 : nc;
+  return (n_keys + NT - 1) / NT;
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, 1) causal_mma_kernel(CausalParams p) {
-  constexpr int DG = D / 8;                // 8-dim groups of a key row
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MMA_THREADS, 1)
+    causal_mma_kernel(CausalParams p, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap) {
   constexpr int KS = D == 64 ? 5 : D / 16;  // k-steps of the score product (see the note on d = 64)
   constexpr int TILE = NT * D * 2;         // bytes of a K or a V tile
+  constexpr int SW = D * 2 < SWIZZLE_MAX ? D * 2 : SWIZZLE_MAX;  // swizzle_bytes(D)
+  constexpr int BOXES = D * 2 / SW;        // TMA boxes of a tile
+  constexpr uint64_t LAYOUT = (uint64_t)(SW == 128 ? 1 : SW == 64 ? 2 : 3) << 62;  // wgmma's swizzle mode
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + STAGES;
-  uint8_t* tiles = smem + SMEM_HEAD;  // stage s: K at s * 2 * TILE, V right after it
+  // stage s: K at s * 2 * TILE, V right after it, from the first 1024-byte boundary past the barriers
+  const uint32_t smem0 = smem_u32(smem);
+  uint8_t* tiles = smem + (((smem0 + 2 * STAGES * 8 + 1023) & ~1023u) - smem0);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int G = p.G, h = blockIdx.y, b = blockIdx.z;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * MQ;  // the longest row blocks start first
-  const int n_keys = min((min(row0 + MQ, p.QR) - 1) / G + 1, p.nc);  // keys the block's rows see
-  const int n_tiles = (n_keys + NT - 1) / NT;
+  const uint32_t rank = cluster_ctarank();  // blockIdx.x % CLUSTER
+  const int row0 = (row_blocks(p.QR) - 1 - (int)blockIdx.x) * MQ;  // negative: no rows
+  const int n_tiles = block_tiles(p.QR, G, p.nc, blockIdx.x);
+  // tiles 0 .. n_shared - 1 are the partner's too: multicast, each block copying one half
+  const int n_shared = min(n_tiles, block_tiles(p.QR, G, p.nc, blockIdx.x ^ 1));
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + s, 128);            // the producer threads, once their copies of a tile landed
-      mbar_init(empty + s, CONS_THREADS);  // the consumers' threads, once P V of the tile is done
+      mbar_init(full + s, 1);               // this block's producer, with the tile's bytes
+      mbar_init(empty + s, CLUSTER * NCONS);  // every consumer warpgroup of the cluster (see below)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_arrive();  // both blocks' barriers exist before either copies into the other
+  cluster_wait();
 
   if (warp >= NCONS * 4) {
-    // ---- the producer warpgroup: tile t into stage t % STAGES ----
+    // ---- the producer warpgroup: one thread copies tile t into stage t % STAGES ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    const int lp = tid - CONS_THREADS;
-    const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + h * p.skh;
-    const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + h * p.svh;
-    auto load = [&](int tile) {
-      uint8_t* kt = tiles + (tile % STAGES) * 2 * TILE;
-      // copy c: key (c & 7) + 8 * ((c >> 3) / DG), group (c >> 3) % DG. Eight
-      // neighbouring lanes fill one core matrix (128 bytes, no bank conflict)
-      // and a warp reads four neighbouring groups of eight keys (whole sectors).
-      for (int c = lp; c < NT * DG; c += 128) {
-        const int key = (c & 7) + 8 * ((c >> 3) / DG), g = (c >> 3) % DG, n = tile * NT + key;
-        const bool live = n < p.nc;
-        const long nn = live ? n : 0;
-        const int off = (g * NT + key) * 16;
-        cp_async16(kt + off, kg + nn * p.skn + g * 8, live ? 16 : 0);
-        cp_async16(kt + TILE + off, vg + nn * p.svn + g * 8, live ? 16 : 0);
+    cluster_arrive();  // nothing of the partner's is touched after its copies land
+    if (tid == CONS_THREADS) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);  // the first pass finds every stage free
+        mbar_arrive_expect_tx(full + s, 2 * TILE);
+        uint8_t* kt = tiles + s * 2 * TILE;
+        if (t < n_shared) {
+          const CUtensorMap* map = rank ? &vmap : &kmap;
+          uint8_t* dst = kt + rank * TILE;
+#pragma unroll
+          for (int x = 0; x < BOXES; ++x)
+            tma_load_4d_multicast(dst + x * NT * SW, map, full + s, x * SW / 2, t * NT, h, b, 0x3);
+        } else {
+#pragma unroll
+          for (int x = 0; x < BOXES; ++x) {
+            tma_load_4d(kt + x * NT * SW, &kmap, full + s, x * SW / 2, t * NT, h, b);
+            tma_load_4d(kt + TILE + x * NT * SW, &vmap, full + s, x * SW / 2, t * NT, h, b);
+          }
+        }
       }
-    };
-    // Each thread's copies of a tile arrive on the stage's full barrier by
-    // themselves when they land (cp.async.mbarrier.arrive), so a consumer
-    // never waits for the producer to issue later tiles first.
-    for (int t = 0; t < n_tiles; ++t) {
-      mbar_wait(empty + t % STAGES, ((t / STAGES) & 1) ^ 1);  // the first pass finds every stage free
-      load(t);
-      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(full + t % STAGES))
-                   : "memory");
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
     // ---- consumers: 64 rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int gq = lane >> 2, t4 = lane & 3;
     const int row_a = row0 + (warp >> 2) * 64 + (warp & 3) * 16 + gq, row_b = row_a + 8;
     const int pos_a = row_a / G, pos_b = row_b / G;
-    const bool live_a = row_a < p.QR, live_b = row_b < p.QR;
+    const bool live_a = row_a >= 0 && row_a < p.QR, live_b = row_b >= 0 && row_b < p.QR;
     // row r is (head h * G + r % G, position r / G)
     const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + (long)h * G * p.sqh;
     const __nv_bfloat16* q_a = qg + (row_a - pos_a * G) * p.sqh + (long)pos_a * p.sqn;
@@ -361,6 +396,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) causal_mma_kernel(CausalParams
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
     const float L2E = 1.4426950408889634f;
     uint32_t pa[NT / 16][4];  // P of the previous tile as the A operand: keys 16 kk .. 16 kk + 15
+    const bool wg_lead = (tid & 127) == 0, wg_second = (tid & 127) == 32;
 
     // Iteration it issues S(it) = Q K(it)^T and O += P(it - 1) V(it - 1) as
     // one batch, hands stage it - 1 back once it is done, then masks and runs
@@ -370,15 +406,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) causal_mma_kernel(CausalParams
     for (int it = 0; it <= n_tiles; ++it) {
       const bool has_s = it < n_tiles, has_pv = it > 0;
       const int s = it % STAGES, sp = (it + STAGES - 1) % STAGES;
-      if (has_s) {
-        mbar_wait(full + s, (it / STAGES) & 1);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the copies, visible to wgmma
-      }
-      // K: K-major, core matrices NT * 16 bytes apart along K (dims), 128
-      // along N (keys); V: MN-major, 128 bytes apart along K (keys), NT * 16
-      // along N (dims)
-      const uint64_t dk = smem_desc(tiles + s * 2 * TILE, NT * 16, 128);
-      const uint64_t dv = smem_desc(tiles + sp * 2 * TILE + TILE, 128, NT * 16);
+      if (has_s) mbar_wait(full + s, (it / STAGES) & 1);  // TMA wrote the tile: no proxy fence needed
+      // K: K-major, swizzled rows of SW bytes, 8-row groups 8 SW apart along N
+      // (keys); V: MN-major, SW bytes of dims a row, boxes NT * SW apart along
+      // N (dims), 8-row groups 8 SW apart along K (keys)
+      const uint64_t dk = smem_desc(tiles + s * 2 * TILE, 16, 8 * SW) | LAYOUT;
+      const uint64_t dv = smem_desc(tiles + sp * 2 * TILE + TILE, NT * SW, 8 * SW) | LAYOUT;
       reg_fence(sacc);
       reg_fence(oacc);
       wgmma_fence();
@@ -387,18 +420,27 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) causal_mma_kernel(CausalParams
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           const int kss = ks < D / 16 ? ks : 0;  // the zero step of d = 64 rereads dims 0-15
-          wgmma_s64(sacc, qa[ks], dk + (uint64_t)((kss * 2 * NT * 16) >> 4), ks > 0);
+          // dims 16 kss ..: box kss * 32 / SW, byte (kss * 32) % SW of its rows
+          wgmma_s64(sacc, qa[ks], dk + (uint64_t)(((kss * 32 / SW) * NT * SW + (kss * 32) % SW) >> 4), ks > 0);
         }
       }
       if (has_pv) {
 #pragma unroll
-        for (int kk = 0; kk < NT / 16; ++kk) wgmma_pv<D>(oacc, pa[kk], dv + (uint64_t)((kk * 2 * 128) >> 4));
+        for (int kk = 0; kk < NT / 16; ++kk) wgmma_pv<D>(oacc, pa[kk], dv + (uint64_t)((kk * 16 * SW) >> 4));
       }
       wgmma_commit();
       wgmma_wait0();
       reg_fence(sacc);
       reg_fence(oacc);
-      if (has_pv) mbar_arrive(empty + sp);
+      // the warpgroup is done with stage sp: one arrival here and one on the
+      // partner's barrier for a tile both hold, two here for one only this
+      // block holds (each empty barrier counts CLUSTER arrivals per warpgroup)
+      if (has_pv) {
+        const bool both = it - 1 < n_shared;
+        if (wg_lead) mbar_arrive_n(empty + sp, both ? 1 : CLUSTER);
+        if (wg_second && both) mbar_arrive_peer(empty + sp, rank ^ 1);
+      }
+      if (it == n_shared) cluster_arrive();  // the partner's barriers are not touched again
       if (!has_s) break;
 
       // the causal mask; keys past nc are past every real row's diagonal
@@ -480,6 +522,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) causal_mma_kernel(CausalParams
       if (live_b) p.lse[o_b] = l_b > 0.f ? m_b + logf(l_b) : NEG_BIG;
     }
   }
+  cluster_wait();  // neither block leaves while the other may still arrive on its barriers
 }
 
 extern "C" int causal_attention_q_block() { return BQ; }
@@ -500,6 +543,48 @@ static cudaError_t set_smem(const void* kernel, long smem, long& attr_set) {
   return e;
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// The tensor map of a (bs, nh_k, nc, d) bf16 view with element strides (sb,
+// sh, sn) and contiguous dims: rank 4 (d, nc, nh_k, bs) with byte strides,
+// boxes of swizzle_bytes(d) / 2 dims x NT keys, swizzled, keys past nc read
+// as zeros. TMA needs a 16-byte aligned base and strides that are multiples
+// of 16 bytes (the wrapper checks both).
+static cudaError_t tensor_map(CUtensorMap* map, const void* base, long sb, long sh, long sn, int bs, int nh_k,
+                              int nc, int d) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)nc, (cuuint64_t)nh_k, (cuuint64_t)bs};
+  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const int sw = swizzle_bytes(d);
+  const cuuint32_t box[4] = {(cuuint32_t)sw / 2, NT, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                                        : CU_TENSOR_MAP_SWIZZLE_32B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 static cudaError_t launch_mma(const CausalParams& p, int bs, cudaStream_t st) {
   static long attr_set = 0;
@@ -507,15 +592,27 @@ static cudaError_t launch_mma(const CausalParams& p, int bs, cudaStream_t st) {
   auto kernel = causal_mma_kernel<D>;
   cudaError_t e = set_smem((const void*)kernel, smem, attr_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((p.QR + MQ - 1) / MQ), (unsigned)p.nh_k, (unsigned)bs);
-  kernel<<<grid, MMA_THREADS, smem, st>>>(p);
+  CUtensorMap kmap, vmap;
+  if ((e = tensor_map(&kmap, p.k, p.skb, p.skh, p.skn, bs, p.nh_k, p.nc, D)) != cudaSuccess) return e;
+  if ((e = tensor_map(&vmap, p.v, p.svb, p.svh, p.svn, bs, p.nh_k, p.nc, D)) != cudaSuccess) return e;
+  const dim3 grid((unsigned)grid_blocks(p.QR), (unsigned)p.nh_k, (unsigned)bs);
+  kernel<<<grid, MMA_THREADS, smem, st>>>(p, kmap, vmap);
   return cudaGetLastError();
 }
 
-// Launches the kernel on `stream`: grid (ceil(nc * G / 128), nh_k, bs).
-// Strides are in elements, dims contiguous. bf16_mma selects the
-// tensor-core version (bf16 q, k, v; d in {16, 64, 128}; 16-byte aligned k
-// and v rows), else the f32 version (f32 q, k, v; d <= 128, d % 4 == 0).
+// The tiles row block bx of the tensor-core version copies, and the grid's
+// row blocks (with the padding of the last cluster); the wrapper holds its
+// mirror (block_tiles, grid_blocks) against them.
+extern "C" int causal_attention_block_tiles(int nc, int G, int bx) { return block_tiles(nc * G, G, nc, bx); }
+extern "C" int causal_attention_grid_blocks(int nc, int G) { return grid_blocks(nc * G); }
+extern "C" int causal_attention_swizzle(int d) { return swizzle_bytes(d); }
+
+// Launches the kernel on `stream`: grid (ceil(nc * G / 128), nh_k, bs), the
+// tensor-core version's first dimension rounded up to whole clusters of
+// two. Strides are in elements, dims contiguous. bf16_mma selects the
+// tensor-core version (bf16 q, k, v; d in {16, 64, 128}; k and v at 16-byte
+// aligned bases with strides of whole 16 bytes, as TMA reads them), else
+// the f32 version (f32 q, k, v; d <= 128, d % 4 == 0).
 // Returns a cudaError_t (0 on success); the caller validates shapes and types.
 extern "C" int causal_attention(const void* q, const void* k, const void* v, void* out, void* lse,
                                 long sqb, long sqh, long sqn, long skb, long skh, long skn, long svb,

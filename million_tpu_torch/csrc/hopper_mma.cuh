@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels of this package
 // (pq_chunk_attention.cu, causal_attention.cu): shared-memory addresses,
-// mbarriers, wgmma descriptors of no-swizzle operands and the wgmma shapes
-// the kernels issue (A from registers, B from shared memory, f32 sums).
+// mbarriers, TMA copies and cluster barriers, wgmma descriptors of
+// no-swizzle operands and the wgmma shapes the kernels issue (A from
+// registers, B from shared memory, f32 sums).
 // Device code only; sm_90a.
 
 #pragma once
@@ -40,6 +41,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- TMA and thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster: every thread of every block of the cluster arrives once,
+// then waits; arrive may come early and from threads at different places
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+
+// `count` arrivals on a barrier of this block
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// one arrival on the barrier at the same offset in block `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// the local arrival of a phase that also waits for `bytes` of TMA copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// a box of a rank-4 tensor map into this block's shared memory at dst; the
+// bytes complete on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same box into dst of every block of the cluster in `mask`, each
+// block's bytes completing on its own barrier at bar's offset
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const void* map, uint64_t* bar, int c0, int c1,
+                                                      int c2, int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
 }
 
 // A wgmma descriptor of a no-swizzle operand: lbo is the byte stride between

@@ -17,7 +17,7 @@
 //     in shared memory, V decoded on the fly.
 //   pq_reduce_kernel: the LSE-merge of the splits and of the exact residual
 //     window, whose live row count is a host integer or one device integer
-//     per sequence.
+//     per sequence, its rows read by the whole block at once.
 // The tiles of code rows (and outlier rows, and scores) are copied into
 // shared memory with cp.async, double-buffered, so the next tile's copy (in
 // paged mode: from the next page) is in flight while the current one is
@@ -98,8 +98,9 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// Copy nt rows of rb bytes (global rows contiguous) into shared rows of
-// stride rs, in 16-byte pieces when rb allows, else 4-byte pieces.
+// Copy nt rows of rb bytes (global rows contiguous, rb % 4 == 0) into
+// shared rows of stride rs, in 16-byte pieces when rb allows, else 4-byte
+// pieces.
 __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, int nt, int rb, int rs) {
   if (rb % 16 == 0) {
     const int per = rb / 16;
@@ -115,6 +116,32 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, int 
     }
   }
 }
+
+// Copy `bytes` contiguous bytes (whole bf16 values) from src into shared
+// memory at dst + (src & 15), dst 16-byte aligned, and return that address:
+// the 16-byte-aligned body in 16-byte cp.async pieces, the head before it
+// and the tail after it (under 16 bytes each) by plain 2-byte loads of the
+// last 16 threads. A tile of outlier rows is one such span (rows of any OK *
+// 2 bytes lie back to back), so any OK works; its slot takes bytes + 16.
+__device__ __forceinline__ const uint8_t* copy_span(uint8_t* dst, const uint8_t* src, int bytes) {
+  const int lead = (int)((uintptr_t)src & 15);
+  uint8_t* out = dst + lead;
+  const int head = min(bytes, (16 - lead) & 15);
+  const int body = (bytes - head) / 16;
+  const int tail0 = head + body * 16;
+  for (int i = threadIdx.x; i < body; i += THREADS) cp_async16(out + head + i * 16, src + head + i * 16);
+  const int n_head = head / 2, n_tail = (bytes - tail0) / 2;  // at most 7 each
+  const int t = (int)threadIdx.x - (THREADS - 16);
+  if (t >= 0 && t < n_head + n_tail) {
+    const int off = t < n_head ? 2 * t : tail0 + 2 * (t - n_head);
+    *reinterpret_cast<unsigned short*>(out + off) = __ldg(reinterpret_cast<const unsigned short*>(src + off));
+  }
+  return out;
+}
+
+// Bytes of one shared slot of a tile's outlier rows (copy_span's span and
+// its lead); 0 without outliers.
+__host__ __device__ __forceinline__ int outlier_slot(int o) { return o > 0 ? TILE * 2 * o + 16 : 0; }
 
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   // n is a multiple of 4 and both pointers are 16-byte aligned
@@ -204,8 +231,8 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
   const float* kc = p.kcent;
   if (p.cent_in_smem) { kc = reinterpret_cast<float*>(ptr); ptr += (size_t)p.Ck * d * 4; }
   uint8_t* kbuf = ptr;  ptr += 2 * TILE * p.rs;
-  const int okb = OK * 2;  // outlier row bytes
-  uint8_t* kobuf = ptr; ptr += (2 * TILE * okb + 15) / 16 * 16;
+  const int okb = OK * 2, kos = outlier_slot(OK);  // outlier row bytes, slot bytes
+  uint8_t* kobuf = ptr; ptr += 2 * kos;
   float* qt = reinterpret_cast<float*>(ptr);  ptr += d * GP * 4;  // qt[dim][GP]
   float* qot = reinterpret_cast<float*>(ptr); ptr += (OK > 0 ? OK : 1) * GP * 4;
   float* red_s = reinterpret_cast<float*>(ptr);
@@ -215,10 +242,14 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
   split_span<PAGED>(p, b, split, start, end);
   float* srow = p.scores + bh * (long)p.srow_len * G;
 
+  const uint8_t* ko_tile[2] = {kobuf, kobuf + kos};  // each slot's first outlier row
   auto prefetch = [&](int buf, int n0) {
     const int nt = min(TILE, end - n0);
     copy_rows(kbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.kcodes, b, h, n0, M), nt, M, p.rs);
-    if (p.kout) copy_rows(kobuf + buf * TILE * okb, token_rows<PAGED>(p, p.kout, b, h, n0, okb), nt, okb, okb);
+    if (p.kout) {
+      const uint8_t* at = copy_span(kobuf + buf * kos, token_rows<PAGED>(p, p.kout, b, h, n0, okb), nt * okb);
+      if (buf) ko_tile[1] = at; else ko_tile[0] = at;
+    }
     cp_async_commit();
   };
   if (start < end) prefetch(0, start);
@@ -277,7 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
         }
       }
       if (p.kout && half) {
-        const __nv_bfloat16* ko = reinterpret_cast<const __nv_bfloat16*>(kobuf + buf * TILE * okb) + t_me * OK;
+        const __nv_bfloat16* ko = reinterpret_cast<const __nv_bfloat16*>(buf ? ko_tile[1] : ko_tile[0]) + t_me * OK;
         for (int o = 0; o < OK; ++o) fma_dim<GQ>(s, qot4, o, __bfloat162float(ko[o]));
       }
     }
@@ -360,8 +391,8 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
   const float* vc = p.vcent;
   if (p.cent_in_smem) { vc = reinterpret_cast<float*>(ptr); ptr += (size_t)p.Cv * d * 4; }
   uint8_t* vbuf = ptr;  ptr += 2 * TILE * p.rs;
-  const int ovb = OV * 2;
-  uint8_t* vobuf = ptr; ptr += (2 * TILE * ovb + 15) / 16 * 16;
+  const int ovb = OV * 2, vos = outlier_slot(OV);
+  uint8_t* vobuf = ptr; ptr += 2 * vos;
   const int sb = G * 4;  // score row bytes
   uint8_t* sbuf = ptr;  ptr += (2 * TILE * sb + 15) / 16 * 16;
   float* p_s = reinterpret_cast<float*>(ptr); ptr += TILE * GP * 4;  // p_s[t][GP]
@@ -370,10 +401,14 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
 
   const uint8_t* sg = reinterpret_cast<const uint8_t*>(p.scores + bh * (long)p.srow_len * G);
 
+  const uint8_t* vo_tile[2] = {vobuf, vobuf + vos};
   auto prefetch = [&](int buf, int n0) {
     const int nt = min(TILE, end - n0);
     copy_rows(vbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.vcodes, b, h, n0, Mv), nt, Mv, p.rs);
-    if (p.vout) copy_rows(vobuf + buf * TILE * ovb, token_rows<PAGED>(p, p.vout, b, h, n0, ovb), nt, ovb, ovb);
+    if (p.vout) {
+      const uint8_t* at = copy_span(vobuf + buf * vos, token_rows<PAGED>(p, p.vout, b, h, n0, ovb), nt * ovb);
+      if (buf) vo_tile[1] = at; else vo_tile[0] = at;
+    }
     copy_rows(sbuf + buf * TILE * sb, sg + (long)n0 * sb, nt, sb, sb);
     cp_async_commit();
   };
@@ -462,7 +497,7 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
         }
       } else {
         const __nv_bfloat16* vo =
-            reinterpret_cast<const __nv_bfloat16*>(vobuf + buf * TILE * ovb) + (col - Mv);
+            reinterpret_cast<const __nv_bfloat16*>(buf ? vo_tile[1] : vo_tile[0]) + (col - Mv);
 #pragma unroll 4
         for (int t = grp; t < nt; t += ngrp) {
           const float v = __bfloat162float(vo[t * OV]);
@@ -519,56 +554,101 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
 // LSE-merge of the per-split partials (merge_partials in ops/pq_attention_ref),
 // together with the exact partial over the first r rows of the residual
 // window when r > 0 (masked_partial_attention + merge_two_partials). One
-// block per (b, h); the residual rows are (bs, nh_k, Lt, d) bf16 or f32.
-// r is r_seq[b] (clamped to Lt) when r_seq is given, else the host's r.
-__global__ void pq_reduce_kernel(const float* __restrict__ out_part,
-                                 const float* __restrict__ lse_part,
-                                 const float* __restrict__ q, const void* kres,
-                                 const void* vres, int r, const int* __restrict__ r_seq,
-                                 int nh_k, int Lt, int res_bf16,
-                                 float* __restrict__ out, float* __restrict__ lse,
-                                 int S, int G, int d) {
+// block of RTHREADS per (b, h); the residual rows are (bs, nh_k, Lt, d) of T
+// (bf16 or f32). r is r_seq[b] (clamped to Lt) when r_seq is given, else the
+// host's r. Every step spreads over the block, so the window's rows are read
+// with coalesced loads, many in flight: the scores a warp per row (its lanes
+// across the dims, a warp sum per query row), the softmax a warp per query
+// row, P V a thread per (dim, group of rows) summed in shared memory, then
+// the merge a thread per (query row, dim).
+#define RTHREADS 512
+#define MAX_G 8
+
+__device__ __forceinline__ float res_f32(float v) { return v; }
+__device__ __forceinline__ float res_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// shared memory of the reduce pass, in floats
+static size_t reduce_smem_floats(int G, int d, int Lt) {
+  const int groups = RTHREADS / d > 0 ? RTHREADS / d : 1;
+  return (size_t)G * d + (size_t)G * Lt + 2 * G + (size_t)groups * G * d;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RTHREADS) pq_reduce_kernel(const float* __restrict__ out_part,
+                                                             const float* __restrict__ lse_part,
+                                                             const float* __restrict__ q, const T* kres,
+                                                             const T* vres, int r, const int* __restrict__ r_seq,
+                                                             int nh_k, int Lt, float* __restrict__ out,
+                                                             float* __restrict__ lse, int S, int G, int d) {
   extern __shared__ float rsm[];
-  float* q_s = rsm;           // G * d
-  float* p_s = q_s + G * d;   // G * Lt: residual scores, then weights
-  float* st = p_s + G * Lt;   // G * 2: residual max and sum
+  const int groups = RTHREADS / d > 0 ? RTHREADS / d : 1;  // groups of rows in P V
+  float* q_s = rsm;             // G * d
+  float* p_s = q_s + G * d;     // G * Lt: residual scores, then weights
+  float* st = p_s + G * Lt;     // G * 2: residual max and sum
+  float* o_s = st + 2 * G;      // groups * G * d: P V per group of rows
   const long bh = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = RTHREADS / 32;
   if (r_seq) r = max(0, min(r_seq[bh / nh_k], Lt));
-  auto res_at = [&](const void* base, int j, int k) -> float {
-    const long i = (bh * Lt + j) * d + k;
-    return res_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[i])
-                    : reinterpret_cast<const float*>(base)[i];
-  };
-  for (int i = tid; i < G * d; i += blockDim.x) q_s[i] = q[bh * G * d + i];
+  for (int i = tid; i < G * d; i += RTHREADS) q_s[i] = q[bh * G * d + i];
   __syncthreads();
-  for (int i = tid; i < G * r; i += blockDim.x) {
-    const int g = i / r, j = i % r;
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc = fmaf(q_s[g * d + k], res_at(kres, j, k), acc);
-    p_s[g * Lt + j] = acc;
-  }
-  __syncthreads();
-  if (tid < G) {
-    float m = NEG_BIG, l = 0.f;
-    if (r > 0) {
-      m = -INFINITY;
-      for (int j = 0; j < r; ++j) m = fmaxf(m, p_s[tid * Lt + j]);
-      for (int j = 0; j < r; ++j) {
-        const float e = expf(p_s[tid * Lt + j] - m);
-        p_s[tid * Lt + j] = e;
-        l += e;
-      }
+  for (int j = warp; j < r; j += NW) {
+    const T* kr = kres + (bh * Lt + j) * d;
+    float acc[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      const float kv = res_f32(kr[k]);
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) acc[g] = fmaf(q_s[g * d + k], kv, acc[g]);
     }
-    st[2 * tid] = m;
-    st[2 * tid + 1] = l;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) {
+        const float v = warp_sum(acc[g]);
+        if (lane == 0) p_s[g * Lt + j] = v;
+      }
   }
   __syncthreads();
-  for (int i = tid; i < G * d; i += blockDim.x) {
+  for (int g = warp; g < G; g += NW) {
+    float m = -INFINITY, l = 0.f;
+    for (int j = lane; j < r; j += 32) m = fmaxf(m, p_s[g * Lt + j]);
+    m = warp_max(m);
+    for (int j = lane; j < r; j += 32) {
+      const float e = expf(p_s[g * Lt + j] - m);
+      p_s[g * Lt + j] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      st[2 * g] = r > 0 ? m : NEG_BIG;
+      st[2 * g + 1] = l;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < groups * d; i += RTHREADS) {
+    const int k = i % d, grp = i / d;
+    float acc[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+#pragma unroll 4
+    for (int j = grp; j < r; j += groups) {
+      const float v = res_f32(vres[(bh * Lt + j) * d + k]);
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) acc[g] = fmaf(p_s[g * Lt + j], v, acc[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) o_s[(grp * G + g) * d + k] = acc[g];
+  }
+  __syncthreads();
+  for (int i = tid; i < G * d; i += RTHREADS) {
     const int g = i / d, k = i % d;
     float o_r = 0.f, lse_r = NEG_BIG;
     if (r > 0) {
-      for (int j = 0; j < r; ++j) o_r = fmaf(p_s[g * Lt + j], res_at(vres, j, k), o_r);
+      for (int grp = 0; grp < groups; ++grp) o_r += o_s[(grp * G + g) * d + k];
       o_r /= st[2 * g + 1];
       lse_r = st[2 * g] + logf(st[2 * g + 1]);
     }
@@ -614,7 +694,7 @@ static cudaError_t launch_passes(const Params& p, int bs, int optin, cudaStream_
   const int d = p.d;
   Params ps = p;
   ps.rs = code_row_stride(p.M);
-  const size_t need_s = 2 * TILE * (size_t)ps.rs + up16(2 * TILE * 2 * (size_t)p.OK) +
+  const size_t need_s = 2 * TILE * (size_t)ps.rs + 2 * (size_t)outlier_slot(p.OK) +
                         (size_t)d * GP * 4 + (size_t)(p.OK > 0 ? p.OK : 1) * GP * 4 +
                         up16(4 * (size_t)G * (THREADS / 32));
   if (need_s > (size_t)optin) return cudaErrorInvalidConfiguration;
@@ -623,12 +703,30 @@ static cudaError_t launch_passes(const Params& p, int bs, int optin, cudaStream_
   if (e != cudaSuccess) return e;
   Params pv = p;
   pv.rs = code_row_stride(p.Mv);
-  const size_t need_v = 2 * TILE * (size_t)pv.rs + up16(2 * TILE * 2 * (size_t)p.OV) +
+  const size_t need_v = 2 * TILE * (size_t)pv.rs + 2 * (size_t)outlier_slot(p.OV) +
                         up16(2 * TILE * 4 * (size_t)G) + (size_t)TILE * GP * 4 +
                         up16(4 * (size_t)G * d) + up16(4 * (size_t)G * (p.OV > 0 ? p.OV : 1));
   if (need_v > (size_t)optin) return cudaErrorInvalidConfiguration;
   const size_t smem_v = with_cent(pv, need_v, sizeof(float) * (size_t)p.Cv * d, optin);
   return launch(pq_value_kernel<G, PAGED>, pv, bs, smem_v, attr_value, st);
+}
+
+// The reduce pass over residual rows of T (its shared memory may pass 48 KB
+// for long windows).
+template <typename T>
+static cudaError_t launch_reduce(const Params& p, int bs, int G, const void* kres, const void* vres, int r,
+                                 const int* r_seq, int Lt, float* out, float* lse, cudaStream_t st) {
+  static size_t attr_set = 0;
+  const size_t smem = sizeof(float) * reduce_smem_floats(G, p.d, Lt);
+  auto kernel = pq_reduce_kernel<T>;
+  if (smem > 48 * 1024 && smem > attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    attr_set = smem;
+  }
+  kernel<<<bs * p.nh_k, RTHREADS, smem, st>>>(p.out_part, p.lse_part, p.q, (const T*)kres, (const T*)vres, r,
+                                              r_seq, p.nh_k, Lt, out, lse, p.S, G, p.d);
+  return cudaGetLastError();
 }
 
 // The score and value passes for a GQA group of G rows (1..8), then the
@@ -653,9 +751,7 @@ static int run_passes(const Params& p, int bs, int G, const void* kres, const vo
     default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
-  const size_t rsmem = sizeof(float) * (size_t)(G * p.d + G * Lt + 2 * G);
-  pq_reduce_kernel<<<bs * p.nh_k, 128, rsmem, st>>>(
-      p.out_part, p.lse_part, p.q, kres, vres, r, r_seq, p.nh_k, Lt, res_bf16, out, lse, p.S, G,
-      p.d);
-  return (int)cudaGetLastError();
+  e = res_bf16 ? launch_reduce<__nv_bfloat16>(p, bs, G, kres, vres, r, r_seq, Lt, out, lse, st)
+               : launch_reduce<float>(p, bs, G, kres, vres, r, r_seq, Lt, out, lse, st);
+  return (int)e;
 }

@@ -43,8 +43,10 @@
 // tokens that is ~4.2 MB per (b, h) and ~33.5 MB per sequence and layer over
 // 8 KV heads, ~10 us at 3.35 TB/s. The f32 FMAs (4 * G * d per token) bound
 // it from below too; chip_smoke.py prints both for the shapes it runs. This
-// design is bound by shared-memory traffic (a centroid gather per token and
-// subspace, q rows read from shared memory), not by either.
+// design is bound by neither: knock-out builds (benchmarks/paged_kernel_ab.py)
+// put ~55 % of its time in the score pass and ~35 % in the value pass, of
+// which the centroid gathers are a fifth and a twentieth; the rest is the
+// latency of one 512-thread block per SM working through its tiles.
 
 #include "pq_attention_passes.cuh"
 

@@ -41,8 +41,9 @@
 // sum_b n_codes[b] x nh_k x (M + M_v + 2 (OK + OV)), read once: 128 B per
 // token and KV head in dm2 and in dm4 with 16 + 16 outlier channels, so six
 // slots of 32,640 tokens and 8 KV heads are 200.5 MB, 0.060 ms at 3.35 TB/s.
-// As in the flat kernel the design is bound by shared-memory traffic (a
-// centroid gather per token and subspace), not by that.
+// As in the flat kernel the design is bound by neither bytes nor operations
+// but by the latency of its passes (pq_decode_attention.cu says how the time
+// splits).
 
 #include "pq_attention_passes.cuh"
 

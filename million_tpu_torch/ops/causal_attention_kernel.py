@@ -34,7 +34,10 @@ KEY_TILE = {"f32": 128, "bf16": 64}  # keys per tile (BN and NT in the .cu sourc
 MAX_D = 128
 MMA_HEAD_DIMS = (16, 64, 128)  # head dims the tensor-core version is built for
 STAGES = 4  # K/V tiles in flight in the tensor-core version
-SMEM_HEAD = 128  # its mbarriers
+SMEM_HEAD = 1088  # its mbarriers and room to align the tiles to 1024 bytes (the swizzle's period)
+CLUSTER = 2  # row blocks of the tensor-core version that share their K/V tiles (TMA multicast)
+SWIZZLE_MAX = 128  # bytes of a key's dims in one TMA box
+TMA_ALIGN = 16  # bytes: TMA needs the base and every stride of K and V in whole 16 bytes
 
 _lib = None
 
@@ -56,22 +59,77 @@ def _library():
         lib.causal_attention_key_tile.restype = ctypes.c_int
         lib.causal_attention_key_tile.argtypes = [ctypes.c_int]
         lib.causal_attention_q_block.restype = ctypes.c_int
+        for fn, n_args in ((lib.causal_attention_block_tiles, 3), (lib.causal_attention_grid_blocks, 2),
+                           (lib.causal_attention_swizzle, 1)):
+            fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * n_args
         if lib.causal_attention_q_block() != Q_BLOCK or any(
                 lib.causal_attention_key_tile(int(pr == "bf16")) != t for pr, t in KEY_TILE.items()):
             raise RuntimeError("the tiles differ between the Python wrapper and the CUDA source")
+        if any(lib.causal_attention_grid_blocks(nc, G) != grid_blocks(nc, G)
+               or any(lib.causal_attention_block_tiles(nc, G, bx) != block_tiles(nc, G, bx)
+                      for bx in range(grid_blocks(nc, G)))
+               for nc, G in ((4096, 3), (512, 3), (200, 3), (130, 1), (97, 4), (1, 3))):
+            raise RuntimeError("the row-block plan differs between the Python wrapper and the CUDA source")
+        if any(lib.causal_attention_swizzle(d) != swizzle_bytes(d) for d in MMA_HEAD_DIMS):
+            raise RuntimeError("the TMA boxes differ between the Python wrapper and the CUDA source")
         _lib = lib
     return _lib
 
 
 def causal_smem_plan(d: int, precision: str) -> int:
     """Bytes of shared memory one block takes, the mirror of
-    causal_attention_smem in csrc/causal_attention.cu. "bf16": a 128-byte
-    head of mbarriers and STAGES stages of a K and a V tile (64 keys of d
-    bf16 each). "f32": the query tile (d x 128), the K or V tile (128 x 128)
-    and the weights (128 x 132, padded), all f32."""
+    causal_attention_smem in csrc/causal_attention.cu. "bf16": a head of
+    mbarriers and alignment (SMEM_HEAD) and STAGES stages of a K and a V
+    tile (64 keys of d bf16 each). "f32": the query tile (d x 128), the K
+    or V tile (128 x 128) and the weights (128 x 132, padded), all f32."""
     if precision == "bf16":
         return SMEM_HEAD + STAGES * 2 * KEY_TILE["bf16"] * d * 2
     return 4 * (d * Q_BLOCK + KEY_TILE["f32"] * 128 + KEY_TILE["f32"] * (Q_BLOCK + 4))
+
+
+def grid_blocks(nc: int, G: int) -> int:
+    """Row blocks in the tensor-core version's grid per (b, KV head): the nc
+    * G rows in blocks of Q_BLOCK, rounded up to whole clusters (the mirror
+    of grid_blocks in csrc/causal_attention.cu)."""
+    return -(-(-(-nc * G // Q_BLOCK)) // CLUSTER) * CLUSTER
+
+
+def block_tiles(nc: int, G: int, bx: int) -> int:
+    """K/V tiles that row block bx of the tensor-core version needs: block
+    bx takes rows (X - 1 - bx) * Q_BLOCK .. + Q_BLOCK, X = ceil(nc * G /
+    Q_BLOCK) (bx = 0 is the longest), and sees keys 0 .. pos(its last row);
+    a padding block (bx >= X) has none. Blocks 2 j and 2 j + 1 form a
+    cluster, the longer one its rank 0; the tiles both need are copied once
+    for the two (the mirror of block_tiles in csrc/causal_attention.cu)."""
+    QR, X, nt = nc * G, -(-nc * G // Q_BLOCK), KEY_TILE["bf16"]
+    rb = X - 1 - bx
+    if rb < 0:
+        return 0
+    n_keys = min((min((rb + 1) * Q_BLOCK, QR) - 1) // G + 1, nc)
+    return -(-n_keys // nt)
+
+
+def swizzle_bytes(d: int) -> int:
+    """Bytes of a key's dims in one TMA box of the tensor-core version, and
+    the width of its swizzle: 2 d up to 128 (the mirror of swizzle_bytes in
+    csrc/causal_attention.cu). A K or V tile is 2 d / swizzle_bytes(d) boxes
+    of swizzle_bytes(d) / 2 dims x 64 keys."""
+    return min(2 * d, SWIZZLE_MAX)
+
+
+def tma_view(t: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The rank-4 tensor map of a (bs, heads, nc, d) K or V view: its dims
+    (d, nc, heads, bs) and its byte strides (position, head, batch), as
+    csrc/causal_attention.cu encodes them; raises unless TMA can read it (a
+    16-byte aligned base, strides in whole 16 bytes, contiguous dims)."""
+    bs, nh_k, nc, d = t.shape
+    sb, sh, sn, sd = t.stride()
+    strides = tuple(x * t.element_size() for x in (sn, sh, sb))
+    if sd != 1 or any(x % TMA_ALIGN for x in strides) or t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"TMA reads K and V at a {TMA_ALIGN}-byte aligned base with strides of whole "
+                         f"{TMA_ALIGN} bytes and contiguous dims; got element strides {t.stride()} "
+                         f"({t.element_size()}-byte elements) at byte offset {t.data_ptr() % TMA_ALIGN}")
+    return (d, nc, nh_k, bs), strides
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -123,16 +181,15 @@ def causal_partial_plain(q, k, v, scale: float, block: int = 1024):
     return out, (m + torch.log(safe_l))[..., 0].reshape(bs, nh, nc)
 
 
-def _strides(t: torch.Tensor, name: str, shape, dtype, dev, align: int):
+def _strides(t: torch.Tensor, name: str, shape, dtype, dev):
     """(batch, head, position) element strides of a (bs, heads, nc, d) view
     whose dims are contiguous; raises on what the kernel does not take."""
     if t.dtype != dtype or t.device != dev or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want a {tuple(shape)} {dtype} tensor on {dev}, got "
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
     sb, sh, sn, sd = t.stride()
-    if sd != 1 or any(s % align for s in (sb, sh, sn)) or t.data_ptr() % (align * t.element_size()):
-        raise ValueError(f"{name}: the kernel reads rows of contiguous dims at {align * t.element_size()}-byte "
-                         f"aligned strides, got strides {t.stride()}")
+    if sd != 1:
+        raise ValueError(f"{name}: the kernel reads rows of contiguous dims, got strides {t.stride()}")
     return sb, sh, sn
 
 
@@ -152,10 +209,12 @@ def _launch(q, k, v, scale: float):
             raise ValueError(f"the f32 kernel needs d <= {MAX_D} and d % 4 == 0, got d={d}")
     else:
         raise ValueError(f"the kernel takes bf16 or f32 inputs, got {q.dtype}")
-    align = 8 if precision == "bf16" else 1  # 16-byte copies of K/V rows; q is read by element
-    qs = _strides(q, "q", (bs, nh, nc, d), q.dtype, dev, 1)
-    ks = _strides(k, "k", (bs, nh_k, nc, d), q.dtype, dev, align)
-    vs = _strides(v, "v", (bs, nh_k, nc, d), q.dtype, dev, align)
+    qs = _strides(q, "q", (bs, nh, nc, d), q.dtype, dev)
+    ks = _strides(k, "k", (bs, nh_k, nc, d), q.dtype, dev)
+    vs = _strides(v, "v", (bs, nh_k, nc, d), q.dtype, dev)
+    if precision == "bf16":  # K and V are TMA's
+        tma_view(k)
+        tma_view(v)
     lib = _library()
     mma = int(precision == "bf16")
     need = lib.causal_attention_smem(d, mma)

@@ -179,8 +179,8 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, layer, n_codes,
         _check(v_oidx, "v_oidx", torch.int32, 2, dev)
         OV = v_outliers.shape[-1]
         vo_p, vidx_p = v_outliers[layer].data_ptr(), v_oidx[layer].data_ptr()
-    if M_v + OV > TILE or OK % 2 or OV % 2:
-        raise ValueError(f"kernel needs M_v + OV <= {TILE} and even OK, OV (got {M_v}, {OK}, {OV})")
+    if M_v + OV > TILE:
+        raise ValueError(f"kernel needs M_v + OV <= {TILE} (got {M_v} + {OV})")
     Lt, res_bf16 = 0, 0
     kr_p = vr_p = null
     if k_residual is not None:

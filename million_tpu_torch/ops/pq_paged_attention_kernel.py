@@ -213,8 +213,8 @@ def _launch(q, key_pool, value_pool, key_cents, value_cents, layer, page_table, 
         if v_outliers.shape[:4] != key_pool.shape[:4]:
             raise ValueError("v_outliers must be a pool beside value_pool")
         vo_p, vidx_p = v_outliers[layer].data_ptr(), v_oidx[layer].data_ptr()
-    if M_v + OV > TILE or OK % 2 or OV % 2:
-        raise ValueError(f"kernel needs M_v + OV <= {TILE} and even OK, OV (got {M_v}, {OK}, {OV})")
+    if M_v + OV > TILE:
+        raise ValueError(f"kernel needs M_v + OV <= {TILE} (got {M_v} + {OV})")
     Lt, res_bf16 = 0, 0
     kr_p = vr_p = r_p = null
     if k_residual is not None:

@@ -147,16 +147,77 @@ def test_tiles_mirror_the_source():
         int(x) for x in re.findall(r"if \(d == (\d+)\) return \(int\)launch_mma", SOURCE.read_text())}
 
 
+def test_cluster_plan_mirrors_the_source():
+    """The tensor-core version's clusters and TMA boxes: the constants are
+    the source's, the grid pads an odd row-block count to whole clusters of
+    two, and the longer block of a pair is its rank 0."""
+    defs = _defines()
+    assert int(defs["CLUSTER"]) == C.CLUSTER == 2
+    assert int(defs["SWIZZLE_MAX"]) == C.SWIZZLE_MAX
+    # boxes of 64 dims (128 bytes, the 128-byte swizzle) at d = 64 and 128, 16 (32 bytes) at d = 16
+    assert [C.swizzle_bytes(d) for d in C.MMA_HEAD_DIMS] == [32, 128, 128]
+    assert "__cluster_dims__(CLUSTER, 1, 1)" in SOURCE.read_text()
+    # nc 200 at G = 3: 600 rows, five blocks and a padding block
+    assert C.grid_blocks(200, 3) == 6
+    assert [C.block_tiles(200, 3, bx) for bx in range(6)] == [4, 3, 2, 2, 1, 0]
+    # nc 130 at G = 1: two blocks, one pair; one token: one block and its padding
+    assert [C.block_tiles(130, 1, bx) for bx in range(C.grid_blocks(130, 1))] == [3, 2]
+    assert [C.block_tiles(1, 3, bx) for bx in range(C.grid_blocks(1, 3))] == [1, 0]
+    for nc, G in ((4096, 3), (512, 3), (380, 3), (300, 1), (97, 4)):
+        tiles = [C.block_tiles(nc, G, bx) for bx in range(C.grid_blocks(nc, G))]
+        assert tiles == sorted(tiles, reverse=True) and tiles[0] == -(-nc // 64)
+        assert all(tiles[j] >= tiles[j + 1] for j in range(0, len(tiles), 2))
+
+
+def tile_copies(nc, G):
+    """(tiles the row blocks of one (b, KV head) need, tiles L2 hands out
+    with each cluster's shared tiles copied once by multicast)."""
+    need = [C.block_tiles(nc, G, bx) for bx in range(C.grid_blocks(nc, G))]
+    shared = sum(min(need[j], need[j + 1]) for j in range(0, len(need), C.CLUSTER))
+    return sum(need), sum(need) - shared
+
+
+def test_multicast_halves_the_tile_copies():
+    """Shared tiles are copied once per cluster: at the chunk shape the row
+    blocks of one (b, KV head) need 3,136 tiles of 64 keys and L2 hands out
+    1,584 (32 (b, KV head) x 32 KB each: 3.29 GB -> 1.66 GB); at the
+    admission shape 56 -> 30."""
+    assert tile_copies(4096, 3) == (3136, 1584)
+    assert tile_copies(512, 3) == (56, 30)
+    tile_bytes = 2 * 64 * 128 * 2
+    need, copied = (4 * 8 * n * tile_bytes for n in tile_copies(4096, 3))
+    assert need == pytest.approx(3.29e9, rel=0.01) and copied == pytest.approx(1.66e9, rel=0.01)
+
+
+def test_tma_view_takes_the_model_layouts_and_rejects_misaligned_ones():
+    """The host side of the tensor maps: the model's K (a head slice) and V
+    (token-major) views give rank-4 maps (d, nc, heads, bs) with byte
+    strides; a row stride off 16 bytes, a base off 16 bytes or strided dims
+    are refused."""
+    q, k, v = model_views(*(torch.from_numpy(a).bfloat16() for a in make_qkv(
+        np.random.default_rng(0), bs=2, nh_k=2, G=3, nc=64, d=64)))
+    assert C.tma_view(k) == ((64, 64, 2, 2), (128, 64 * 128, 8 * 64 * 128))
+    assert C.tma_view(v) == ((64, 64, 2, 2), (2 * 128, 128, 64 * 2 * 128))
+    wide = torch.zeros((2, 2, 64, 68), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="whole 16 bytes"):
+        C.tma_view(wide[..., :64])  # rows 136 bytes apart
+    with pytest.raises(ValueError, match="byte offset 8"):
+        C.tma_view(torch.zeros((2, 2, 64, 72), dtype=torch.bfloat16)[..., 4:68])
+    with pytest.raises(ValueError, match="contiguous dims"):
+        C.tma_view(torch.zeros((2, 2, 64, 128), dtype=torch.bfloat16)[..., ::2])
+
+
 @pytest.mark.parametrize("d", [16, 64, 128])
 def test_smem_plan_fits_and_follows_its_formula(d):
     """The shared memory of a block (the mirror of causal_attention_smem,
     which the wrapper holds it against on the card): the tensor-core version
-    a 128-byte head and four stages of a 64-key K and V tile in bf16, the f32
-    version the query tile, one K or V tile and the weights in f32; both fit
-    the 232,448 bytes a block may take."""
-    assert C.causal_smem_plan(d, "bf16") == 128 + 4 * 2 * 64 * d * 2 <= 232448
+    a head of 64 bytes of mbarriers and up to 1,023 bytes that align the
+    tiles to the swizzle's 1024-byte period, and four stages of a 64-key K
+    and V tile in bf16, the f32 version the query tile, one K or V tile and
+    the weights in f32; both fit the 232,448 bytes a block may take."""
+    assert C.causal_smem_plan(d, "bf16") == 1088 + 4 * 2 * 64 * d * 2 <= 232448
     assert C.causal_smem_plan(d, "f32") == 4 * (d * 128 + 128 * 128 + 128 * 132) <= 232448
-    assert C.causal_smem_plan(128, "bf16") == 131200
+    assert C.causal_smem_plan(128, "bf16") == 132160
 
 
 @pytest.fixture
@@ -178,6 +239,12 @@ CUDA_CASES = {
     "test_tiny_G2_d16": (2, 2, 2, 4, 16),
     "tiles_G3_d128": (1, 8, 3, 1024, 128),
     "admission_6x512": (6, 8, 3, 512, 128),
+    # row blocks in cluster pairs and a lone last block (an odd count), and
+    # chunks that are no multiple of the 64-key tile
+    "odd_blocks_G1_d128": (2, 2, 1, 300, 128),
+    "odd_blocks_G3_d64": (2, 2, 3, 380, 64),
+    "pairs_G3_d64": (1, 4, 3, 1000, 64),
+    "chunk_rows_G3_d128": (1, 8, 3, 4096, 128),
 }
 # kernel against plain, `out` and `lse` apart, about 10x what an H100
 # measured on these cases: f32 only the summation order differs (<= 6.0e-7,
@@ -222,5 +289,8 @@ def test_cuda_kernel_rejects(rng, cuda_device):
         C.causal_partial(q.half(), k.half(), v.half(), 0.2)
     with pytest.raises(ValueError, match="aligned"):  # k rows start 2 bytes off a 16-byte boundary
         C.causal_partial(qb[..., :16], kb[..., 1:17], vb[..., :16], 0.2)
+    v_wide = torch.zeros((*vb.shape[:3], 18), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="whole 16 bytes"):  # v rows 36 bytes apart: no tensor map
+        C.causal_partial(qb[..., :16], kb[..., :16], v_wide[..., :16], 0.2)
     out, _ = C.causal_partial(q, k, v, 0.2)  # the f32 kernel takes d = 32
     assert out.shape == q.shape

@@ -15,6 +15,7 @@ import torch
 
 from million_tpu.ops.pq_attention_pallas import (
     GROUP_PAD,
+    dequantize_table,
     pack_codes,
     pack_decode_table,
     pq_codes_attention_stacked as jax_stacked,
@@ -174,6 +175,54 @@ def test_plain_matches_tpu_kernel_interpret(rng):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :, :G], atol=5e-2)
 
 
+@pytest.mark.parametrize("O", [1, 7, 8])
+def test_plain_with_exact_channels_matches_tpu_kernel_interpret(rng, O):
+    """Odd and even exact-channel counts (OK = OV = 1, 7, 8): the port's
+    plain decode attention against the TPU kernel in interpret mode, the
+    inputs made in the reference's at-rest formats (packed code words,
+    byte-plane outlier slabs) and converted with `convert`, the port
+    decoding with the codebook that kernel computes with (dequantize_table).
+    Tolerance as the reference's own outlier test holds its kernel
+    (tests/test_pallas_kernel.py): 2e-2 on the mean error of `out`, 2e-2 on
+    `lse`."""
+    bs, nh_k, G, d, M, C, L, N, n_codes, li = 1, 2, 2, 32, 8, 128, 2, 512, 300, 1
+    q = rng.standard_normal((bs, nh_k, GROUP_PAD, d)).astype(np.float32)
+    kc = rng.integers(0, C, (L, bs, nh_k, M, N)).astype(np.uint8)
+    vc = rng.integers(0, C, (L, bs, nh_k, M, N)).astype(np.uint8)
+    kcent = rng.standard_normal((L, M, C, d // M)).astype(np.float32)
+    vcent = rng.standard_normal((L, M, C, d // M)).astype(np.float32)
+    ko = (rng.standard_normal((L, bs, nh_k, O, N)) * 2).astype(np.float32)
+    vo = (rng.standard_normal((L, bs, nh_k, O, N)) * 2).astype(np.float32)
+    koidx = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
+    voidx = np.sort(rng.choice(d, O, replace=False)).astype(np.int32)
+    for ch in koidx:
+        kcent[:, ch % M, :, ch // M] = 0.0
+    for ch in voidx:
+        vcent[:, ch % M, :, ch // M] = 0.0
+    tabs = [jax.vmap(lambda x: pack_decode_table(x, direct=True))(jnp.asarray(x)) for x in (kcent, vcent)]
+    words = [pack_codes(jnp.asarray(x)) for x in (kc, vc)]
+    planes = [to_byte_plane(jnp.asarray(x, jnp.bfloat16)) for x in (ko, vo)]
+    qj = jnp.asarray(q / np.sqrt(d), jnp.bfloat16)
+    out_j, lse_j, co_j = jax_stacked(
+        qj, words[0], words[1], tabs[0], tabs[1], jnp.asarray(li), jnp.asarray(n_codes),
+        block=256, direct=True, interpret=True, qo=qj[..., jnp.asarray(koidx)],
+        k_outliers=planes[0], v_outliers=planes[1])
+    want = np.array(out_j)[:, :, :G]
+    want[..., voidx] = np.asarray(co_j)[:, :, :G]
+
+    deq = [np.stack([np.asarray(dequantize_table(jax.tree.map(lambda a: a[i], tab), C=C, direct=True,
+                                                 d_m=d // M)) for i in range(L)]) for tab in tabs]
+    codes = [np.ascontiguousarray(np.swapaxes(convert.unpack_codes(np.asarray(w)), -1, -2)) for w in words]
+    slabs = [convert.from_byte_plane(np.asarray(pl.astype(jnp.float32))) for pl in planes]
+    out, lse = K.pq_codes_attention_stacked(
+        torch.from_numpy(np.asarray(qj.astype(jnp.float32))[:, :, :G].copy()),
+        *[_t(x) for x in codes], *[_t(x) for x in deq], li, n_codes,
+        k_outliers=_t(slabs[0]).bfloat16(), v_outliers=_t(slabs[1]).bfloat16(),
+        k_oidx=_t(np.stack([koidx] * L)), v_oidx=_t(np.stack([voidx] * L)))
+    assert np.abs(out.numpy() - want).mean() < 2e-2
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :, :G], rtol=2e-2, atol=2e-2)
+
+
 def test_converters_invert_jax_packing(rng):
     codes = rng.integers(0, 256, (2, 3, 8, 64)).astype(np.uint8)  # (.., M, N)
     words = np.asarray(pack_codes(jnp.asarray(codes)))
@@ -255,3 +304,27 @@ def test_cuda_kernel_group_sizes(rng, cuda_device, G, d, M, O):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O,N,n_codes", [(7, 1024, 1000), (15, 1024, 517), (1, 700, 652), (7, 701, 701)])
+def test_cuda_kernel_odd_exact_channels(rng, cuda_device, O, N, n_codes):
+    """Odd exact-channel counts (OK = OV = O): a tile's outlier rows are one
+    span of nt * O * 2 bytes, copied whatever its alignment (N = 701 puts
+    the spans of most (b, h) rows off 16-byte boundaries), held against the
+    plain version at 1e-5 on `out` and `lse` (both f32, the same splits)."""
+    c = make_case(rng, G=3, d=32, M=8, C=64, O=O, N=N)
+    bs, nh, d = c["q"].shape
+    qg = _t((c["q"] / np.sqrt(d)).astype(np.float32)).reshape(bs, 2, 3, d)
+    res = torch.randn((2, bs, 2, 16, d), generator=torch.Generator().manual_seed(2)).bfloat16()
+    args = [qg, _t(c["kc"]), _t(c["vc"]), _t(c["kcent"]), _t(c["vcent"]), 1, n_codes]
+    kw = dict(k_outliers=_t(c["ko"]).bfloat16(), v_outliers=_t(c["vo"]).bfloat16(),
+              k_oidx=_t(c["koidx"]), v_oidx=_t(c["voidx"]), k_residual=res, v_residual=res * 2, r=9)
+    want = K.pq_codes_attention_plain(
+        *args, **kw, n_sm=torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    got = K.pq_codes_attention_stacked(
+        *[a.to(cuda_device) if torch.is_tensor(a) else a for a in args],
+        **{k: v.to(cuda_device) if torch.is_tensor(v) else v for k, v in kw.items()})
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-5)

@@ -149,10 +149,11 @@ def test_plain_matches_jax_oracle(rng, geom):
     assert torch.isfinite(out).all()
 
 
-@pytest.mark.parametrize("O,tol", [(0, 2e-3), (4, 2e-2)])
+@pytest.mark.parametrize("O,tol", [(0, 2e-3), (4, 2e-2), (7, 2e-2), (1, 2e-2)])
 def test_plain_matches_tpu_paged_kernel_interpret(rng, O, tol):
     """Against the TPU kernel itself in interpret mode (direct int8 tables,
-    int8 q), the port decoding with the codebook that kernel computes with."""
+    int8 q), the port decoding with the codebook that kernel computes with;
+    odd exact-channel counts (O = 7, 1) as well as even ones."""
     d, M, C, G = 16, 8, 32, 2
     c = make_case(rng, d=d, M=M, C=C, G=G, O=O)
     q16 = np.asarray(jnp.asarray(c["q"], jnp.bfloat16).astype(jnp.float32))
@@ -301,3 +302,32 @@ def test_cuda_kernel_refuses_a_page_that_splits_a_tile(rng, cuda_device):
     args, table, n_codes, kw = port_args(c, cuda_device)
     with pytest.raises(ValueError, match="page_size"):
         P.pq_paged_attention_stacked(*args, 0, table, n_codes, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O", [1, 7, 15])
+def test_cuda_kernel_odd_exact_channels(rng, cuda_device, O):
+    """Odd exact-channel pools (OK = OV = O): a tile's outlier rows are one
+    span of nt * O * 2 bytes, held against the plain version at 1e-5 on
+    `out` and `lse` on ragged lengths, an empty slot included."""
+    c = make_case(rng, G=3, d=32, M=8, C=64, O=O, ps=256, pps=5, n_pages=20, lens=(1200, 517, 0),
+                  rows=(8, 1, 0))
+    want = port_call(c, 1, fn=P.pq_paged_attention_plain,
+                     n_sm=torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    got = _on_card(c, cuda_device, 1)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w.numpy(), atol=1e-5)
+    assert (got[0][-1] == 0).all() and (got[1][-1] == -1e30).all()
+
+
+def test_knockouts_of_the_passes_apply(tmp_path):
+    """The knock-out builds that benchmarks/paged_kernel_ab.py times are text
+    edits of this checkout's passes: every edit still finds its text, so each
+    build times what its name says."""
+    from million_tpu_torch.benchmarks import paged_kernel_ab as A
+    from million_tpu_torch.ops import cuda_build
+
+    original = (cuda_build.CSRC / A.SOURCES[0]).read_text()
+    for name, edits in A.KNOCKOUTS.items():
+        text = (A.write_knockout(name, tmp_path) / A.SOURCES[0]).read_text()
+        assert text != original and all(new in text for _, new, _ in edits)
