@@ -17,10 +17,12 @@ result line:
        and through the single-layer entry; dense bf16 SDPA over the same
        length is printed as a yardstick;
      - pq_encode at the prefill shape (1.024 M rows, "fast"), at the chunked
-       path's shapes (a 4096-token chunk and the last one of 3,328) and at
-       the flush shape (28 banks of 4 x 8 x 16 rows) in dm2 and
-       dm4_outlier_c128, and on integer-valued inputs; the torch
-       baddbmm + argmin encode beside it;
+       path's shapes (a 4096-token chunk and the last one of 3,328), at the
+       serving admission's (6 slots x 8 x 512 rows) and at the flush shape
+       (28 banks of 4 x 8 x 16 rows) in dm2 and dm4_outlier_c128, each timed
+       beside its bound and the plain version but the short chunk, and on
+       integer-valued inputs; the torch baddbmm + argmin encode beside it at
+       the prefill, chunk and admission shapes;
      - pq_chunk_attention for a 4096-token chunk (12,288 rows per KV head)
        over 28,672 history tokens, and for the last 512-token chunk of the
        serving admission (six slots, 1,536 rows per KV head) over 32,256
@@ -287,7 +289,8 @@ def bound_of(nbytes: int, ops: int, ops_per_s: float):
 
 
 def encode_phase(dev):
-    """pq_encode vs its plain version at the prefill and flush shapes."""
+    """pq_encode vs its plain version at the prefill, chunk, admission and
+    flush shapes."""
     import torch
 
     from million_tpu_torch.convert import cents_from_numpy
@@ -346,13 +349,27 @@ def encode_phase(dev):
             f"torch baddbmm+argmin (pq_encode_chunked)={lib_ms:.3f} ms")
         rows[geom] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=miss, library_ms=lib_ms)
-        # the shapes the chunked path gives it: a whole chunk and the last, shorter one,
-        # each the (bs, heads, n, d) view of that chunk's own projection
-        for n in (CHUNK, PROMPT % CHUNK):
-            xc = torch.randn((BS, n, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        # the shapes the chunked path gives it (a whole chunk and the last, shorter one) and
+        # the serving admission's (a 512-token chunk of six slots, models/paged_decode.py), each
+        # the (bs, heads, n, d) view of that chunk's own projection; the whole chunk and the
+        # admission chunk timed
+        for what, bs, n in (("chunk", BS, CHUNK), ("chunk", BS, PROMPT % CHUNK),
+                            ("admission", SERVE_SLOTS, ADMIT_CHUNK)):
+            xc = torch.randn((bs, n, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
             compare(E.pq_encode_fused(xc, cents[0], "strided", "fast")[None],
                     E.pq_encode_fused_plain(xc[None], cents[:1], "strided", "fast"), xc[None],
-                    cents[:1], f"{geom} chunk shape ({BS} x {nh_k} x {n} rows)")
+                    cents[:1], f"{geom} {what} shape ({bs} x {nh_k} x {n} rows)")
+            if n == PROMPT % CHUNK:
+                continue
+            rows_c = bs * nh_k * n
+            bound_c, by_c = bound_of(E.encode_bytes(rows_c, d, M, 2), E.encode_ops(rows_c, M, C, d // M),
+                                     F32_OPS_PER_S)
+            log(f"[kernel] pq_encode {geom} {what} shape: kernel="
+                f"{cuda_ms(lambda: E.pq_encode_fused(xc, cents[0], 'strided', 'fast'), 200):.4f} ms "
+                f"bound={bound_c:.4f} ms ({by_c}) plain="
+                f"{cuda_ms(lambda: E.pq_encode_fused_plain(xc[None], cents[:1], 'strided', 'fast'), 5, warm=1):.3f}"
+                f" ms torch baddbmm+argmin="
+                f"{cuda_ms(lambda: pq_encode_chunked(xc, cents[0], 'strided', precision='fast'), 5, warm=1):.3f} ms")
         # integer-valued inputs: nothing rounds, codes must be bit-equal
         xi = torch.randint(-4, 5, (BS, 2048, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
         ci = torch.randint(-4, 5, cents[0].shape, generator=gen, device=dev).float()
@@ -372,8 +389,11 @@ def encode_phase(dev):
 
         compare(kern_f(), plain_f(), window, cents, f"{geom} flush shape ({L} banks x "
                 f"{BS * nh_k * FLUSH} rows)")
-        log(f"[kernel] pq_encode {geom} flush shape: kernel={cuda_ms(kern_f, 50):.4f} ms "
-            f"plain={cuda_ms(plain_f, 10):.4f} ms")
+        rows_f = L * BS * nh_k * FLUSH
+        bound_f, by_f = bound_of(E.encode_bytes(rows_f, d, M, 2), E.encode_ops(rows_f, M, C, d // M),
+                                 F32_OPS_PER_S)
+        log(f"[kernel] pq_encode {geom} flush shape: kernel={cuda_ms(kern_f, 200):.4f} ms "
+            f"bound={bound_f:.4f} ms ({by_f}) plain={cuda_ms(plain_f, 10):.4f} ms")
         del x, got, window
         torch.cuda.empty_cache()
     return rows

@@ -23,7 +23,8 @@ import torch
 
 from million_tpu_torch.pq.ops import pq_encode
 
-TILE = 256  # token rows per block (TB in the .cu source)
+TILE = 256  # the larger of the kernel's two row tiles (TB_MAX in the .cu source)
+MAX_ROWS = (1 << 31) - 1  # rows per bank the kernel indexes in 32 bits
 KERNEL_DM = (1, 2, 4, 8)  # subspace widths the kernel is built for
 PLAIN_MAX_DIST = 1 << 28  # f32 distances the plain version holds at a time
 
@@ -117,6 +118,8 @@ def _launch(x, cents, layout, precision):
         dims = _collapse(tuple(x.shape[1:-1]), tuple(x.stride()[1:-1]))
     dims = [(1, 0)] * (3 - len(dims)) + dims
     (n0, s0), (n1, s1), (n2, s2) = dims
+    if n0 * n1 * n2 > MAX_ROWS:
+        raise ValueError(f"{n0 * n1 * n2} rows per bank; the kernel takes at most {MAX_ROWS}")
     err = _library().pq_encode(
         x.data_ptr(), cents.data_ptr(), codes.data_ptr(), S, n0, n1, n2,
         x.stride(0), s0, s1, s2, M, C, d_m, int(x.dtype == torch.bfloat16),

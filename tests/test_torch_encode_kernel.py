@@ -140,6 +140,62 @@ def test_wrapper_rejects(rng):
         E.pq_encode_fused_stacked(x, cents, "strided", "sloppy")
 
 
+def duplicated_codebook(rng, M, C, d_m):
+    """Integer-valued (M, C, d_m) codebooks in which every centroid occurs at
+    least twice (at shuffled positions, C >= 2), so that every nearest
+    centroid is a tie; and for each index, whether a later index holds the
+    same centroid."""
+    k = C // 2
+    cents = np.empty((M, C, d_m), np.float32)
+    for m in range(M):
+        base = rng.integers(-3, 4, (k, d_m)).astype(np.float32)
+        idx = rng.permutation(np.concatenate([np.arange(k), np.arange(k), rng.integers(0, k, C - 2 * k)]))
+        cents[m] = base[idx]
+    later = np.array([[any((cents[m, c] == cents[m, c + 1:]).all(-1)) for c in range(C)] for m in range(M)])
+    return cents, later
+
+
+def nearest_lowest(x, cents, layout):
+    """numpy: argmin of the squared distance, ties to the lowest index."""
+    M, C, d_m = cents.shape
+    xs = x.reshape(-1, M, d_m) if layout == "contiguous" else x.reshape(-1, d_m, M).swapaxes(1, 2)
+    return ((xs[:, :, None, :] - cents[None]) ** 2).sum(-1).argmin(-1).reshape(*x.shape[:-1], M)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("C", [7, 128, 256])
+@pytest.mark.parametrize("d_m", [1, 2, 4, 8])
+def test_duplicate_centroids_take_lowest_index(rng, d_m, C, layout):
+    """Every nearest centroid is a tie between copies: the port's plain
+    version, million_tpu's fused encode (interpret mode) and its jnp encode
+    all take the lowest index (integer-valued inputs: nothing rounds)."""
+    d = 16
+    M = d // d_m
+    cents, later = duplicated_codebook(rng, M, C, d_m)
+    x = rng.integers(-3, 4, (3, 20, d)).astype(np.float32)
+    want = nearest_lowest(x, cents, layout)
+    assert later[np.arange(M), want].all()  # each answer has a later copy it must beat
+    got = E.pq_encode_fused(_t(x), _t(cents), layout, "fast").numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(cents), layout, interpret=True,
+                             precision="fast")), want)
+    np.testing.assert_array_equal(
+        np.asarray(jax_encode(jnp.asarray(x), jnp.asarray(cents), layout, precision="fast")), want)
+
+
+def test_knockouts_of_the_encode_apply(tmp_path):
+    """The knock-out builds that benchmarks/encode_kernel_ab.py times are text
+    edits of this checkout's pq_encode.cu: every edit still finds its text."""
+    from million_tpu_torch.benchmarks import encode_kernel_ab as A
+    from million_tpu_torch.ops import cuda_build
+
+    original = (cuda_build.CSRC / A.SOURCE).read_text()
+    for name, edits in A.KNOCKOUTS.items():
+        text = A.write_knockout(name, tmp_path).read_text()
+        assert text != original and all(old not in text for old, _ in edits)
+
+
 def test_bound_counts():
     assert E.encode_bytes(1024, 128, 64, 2) == 1024 * (256 + 64)
     assert E.encode_ops(10, 64, 256, 2) == 10 * 64 * 256 * 5
@@ -161,6 +217,14 @@ CUDA_CASES = {
     "dm8": ((2, 300, 64), (8, 256, 8), "strided", "exact", torch.float32),
     "dm1_tiny": ((1, 33, 16), (16, 7, 1), "contiguous", "exact", torch.float32),
     "test_tiny_dm2": ((2, 2, 2, 50, 16), (8, 32, 2), "strided", "fast", torch.float32),
+    # C not a multiple of the centroid tile (16 at d_m <= 2, 8 at d_m 4, 4 at d_m 8)
+    "c1_dm2": ((1, 2, 300, 64), (32, 1, 2), "strided", "fast", torch.bfloat16),
+    "c7_dm4": ((1, 2, 300, 64), (16, 7, 4), "contiguous", "exact", torch.float32),
+    "c255_dm2_rows_333": ((1, 3, 8, 333, 128), (64, 255, 2), "strided", "fast", torch.bfloat16),
+    "c200_dm8": ((1, 5, 257, 64), (8, 200, 8), "strided", "fast", torch.bfloat16),
+    # the flush: one bank per layer of llama-3.2-3b
+    "flush_28_banks": ((28, 4, 8, 16, 128), (64, 256, 2), "strided", "fast", torch.bfloat16),
+    "flush_28_banks_c128": ((28, 4, 8, 16, 128), (32, 128, 4), "strided", "fast", torch.bfloat16),
 }
 
 
@@ -197,3 +261,47 @@ def test_cuda_kernel_integer_inputs_and_views(rng, cuda_device):
         np.testing.assert_array_equal(got.cpu().numpy(), want)
     empty = E.pq_encode_fused(base.to(cuda_device)[:, :0], cents.to(cuda_device), "strided")
     assert empty.shape == (2, 0, 3, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("C", [1, 7, 200, 255, 256])
+@pytest.mark.parametrize("d_m", [1, 2, 4, 8])
+def test_cuda_duplicate_centroids_take_lowest_index(rng, cuda_device, d_m, C, layout):
+    """Bit-equal codes where every nearest centroid is a tie (C = 1: one
+    centroid, no tie), through the admission shape's kind of view, with a
+    row count that is no multiple of either row tile."""
+    d = 128
+    M = d // d_m
+    if C > 1:
+        cents, _ = duplicated_codebook(rng, M, C, d_m)
+    else:
+        cents = rng.integers(-3, 4, (M, 1, d_m)).astype(np.float32)
+    base = rng.integers(-3, 4, (3, 301, 2, d)).astype(np.float32)
+    want = nearest_lowest(base.transpose(0, 2, 1, 3), cents, layout)
+    view = _t(base).to(cuda_device, torch.bfloat16).transpose(1, 2)
+    got = E.pq_encode_fused(view, _t(cents).to(cuda_device), layout, "fast")
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(64, 256, 2), (32, 128, 4)])
+def test_cuda_kernel_views_at_path_shapes(rng, cuda_device, geometry):
+    """The views the paths give the kernel: a serving admission chunk (6 x 8 x
+    512 rows) and a chunk of 4 x 8 x 1000 rows, as the (bs, heads, n, d)
+    transpose of a (bs, n, heads, d) projection; and an odd view (an element
+    offset and odd strides, which take the element-wise copy)."""
+    M, C, d_m = geometry
+    cents = _t(rng.standard_normal((M, C, d_m)).astype(np.float32)).to(cuda_device)
+    big = _t(rng.standard_normal((6, 1001, 8, 128)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    odd = _t(rng.standard_normal((4, 500, 8, 129)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    views = [big[:, :512].transpose(1, 2), big[:4, 1:].transpose(1, 2), odd[..., 1:].transpose(1, 2)]
+    for view in views:
+        got = E.pq_encode_fused(view, cents, "strided", "fast")
+        want = E.pq_encode_fused_plain(view[None], cents[None], "strided", "fast")[0]
+        assert got.shape == want.shape
+        assert float((got == want).float().mean()) >= 0.999
+        np.testing.assert_allclose(
+            recon_mse(got.cpu().numpy(), cents.cpu().numpy(), view.float().cpu().numpy(), "strided"),
+            recon_mse(want.cpu().numpy(), cents.cpu().numpy(), view.float().cpu().numpy(), "strided"),
+            rtol=1e-4)
