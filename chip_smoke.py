@@ -8,7 +8,8 @@ Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
   1. the card's name and power limit (nvidia-smi);
   2. the build of the five CUDA sources of million_tpu_torch/csrc with nvcc,
-     one nvcc each, started together;
+     one nvcc each, started together, and of the native trainer's pqlib.cpp
+     with g++ beside them;
   3. every kernel against its plain PyTorch version on the card at the main
      paths' shapes (llama-3.2-3b: G=3, d=128, 8 KV heads, batch 4), with its
      time, its bound and the plain version's time:
@@ -74,6 +75,17 @@ result line:
      a test-tiny generate, flat and chunked, and a test-tiny Scheduler with a
      forced preemption, on the card against the CPU; dense-mode TTFT and TPOT
      beside;
+     - the quality path, on the pinned lm_l_v1 (d=64, 6 layers, 8 / 4 heads,
+       f32) over a held-out byte stream that is the same on every machine
+       (its sha256 printed): K/V sampled from 16 dense windows of 1,024
+       tokens, codebooks trained by the port's k-means (25 Lloyd steps, each
+       assignment through the encode kernel), distorted-prefill perplexity
+       over 32 windows of 1,024 tokens (each PQ prefill encodes through the
+       kernel), dense and four rungs, one JSON line each; the encode
+       kernel's launches of the rungs against the count they imply; one
+       layer and side trained from one init with the kernel and with the
+       plain assignment (inertia), the dm2 perplexity through the plain
+       encode, the native library's encode against the kernel's;
   6. a JSON line of the kernels, then the card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
@@ -149,6 +161,31 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "million_tpu/models/chunked_prefill.py:95 (_causal_partial, plain jnp)"),
 }
 PATH_GEOMETRIES = ("dm2", "dm4_outlier_c128")
+# the quality path: quality_ladder.FROZEN_* (lm_l_v1 on the frozen held-out stream, its four rungs);
+# the bars on Δppl / dense ppl, from the TPU ladder's numbers on other text (docs/PERF.md:557-567);
+# d_m=8 (+7.2 % on the TPU) takes the C=128 bar
+Q_BARS = {"dm2": 0.010, "dm4+16/16 C=256": 0.015, "dm4+16/16 C=128": 0.020, "dm8+16/16 C=128": 0.020}
+# million_tpu's own ladder on the same stream and protocol, on the CPU (tools/quality_reference_jax.py,
+# seeds 0-4): dense ppl, and per rung the mean of its five seeds' Δppl. On this held-out text every
+# rung's Δppl is negative, d_m=8 included.
+Q_REF_DENSE = 10.564006884673065
+Q_REF_DPPL = {"dm2": -0.03896570282897329, "dm4+16/16 C=256": -0.08918014370455615,
+              "dm4+16/16 C=128": -0.12919014823891892, "dm8+16/16 C=128": -0.10502037799128913}
+# standard deviation of a rung's Δppl over five k-means seeds: the port's on an H100
+# (`quality_ladder --frozen --seeds 5`), million_tpu's on the CPU (the same five seeds as above)
+Q_SEED_STD = {"dm2": (0.0033115, 0.0069476), "dm4+16/16 C=256": (0.0090909, 0.0093985),
+              "dm4+16/16 C=128": (0.0124599, 0.0133480), "dm8+16/16 C=128": (0.0255013, 0.0391606)}
+# the port's dense ppl against the reference's: same weights and text, f32 both (an H100 measured
+# 4.5e-7). The port's Δppl (seed 0) against the reference's five-seed mean: the two packages draw
+# different k-means++ inits, so 4 standard deviations of that difference, and no less than
+# max(0.01, 25 % of the reference's Δppl)
+Q_DENSE_RTOL = 1e-4
+Q_REF_DPPL_TOL = {n: max(0.01, 0.25 * abs(Q_REF_DPPL[n]), 4 * (sp**2 + sj**2 / 5) ** 0.5)
+                  for n, (sp, sj) in Q_SEED_STD.items()}
+# kernel against plain version on the quality path: the final inertia of one layer and side trained
+# from one k-means++ init (near-ties may split the other way, index_add_ sums in another order), and
+# the dm2 perplexity with the prefill encode through the plain version ("fast" ties may flip)
+Q_INERTIA_RTOL, Q_PPL_RTOL = 1e-4, 1e-3
 
 
 def log(*a):
@@ -1066,6 +1103,119 @@ def serving_path(dev, cfg, params, launches):
         torch.cuda.empty_cache()
 
 
+def quality_path(dev, launches, card):
+    """The quality ladder on lm_l_v1 at full width (d=64, 6 layers, 8 / 4 heads,
+    f32): K/V sampled from its dense prefill, codebooks trained with the port's
+    k-means (every Lloyd assignment through the encode kernel), distorted-
+    prefill perplexity (every PQ prefill encodes through the kernel), dense
+    first, then the four rungs of quality_ladder.FROZEN_RUNGS, each against
+    its bar and against million_tpu's numbers on the same stream (Q_REF_*).
+    Then the kernel against its plain version: one layer and side of dm2 trained twice
+    from one init, and the dm2 perplexity again through the plain encode; and
+    the native trainer's encode against the kernel's. B7's launches of the
+    rungs go into launches["pq_encode"]["quality"]."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch import native
+    from million_tpu_torch.benchmarks import quality_ladder as ql
+    from million_tpu_torch.benchmarks.tiny_lm import build_corpus_frozen, checkpoint_path_l, load_checkpoint
+    from million_tpu_torch.ops.pq_encode_kernel import encode_bytes, encode_ops, pq_encode_fused_stacked
+    from million_tpu_torch.pq import kmeans
+    from million_tpu_torch.pq.ops import subspace_view
+
+    t_phase = time.perf_counter()
+    params, cfg = load_checkpoint(checkpoint_path_l(), device=dev)
+    tokens = build_corpus_frozen()
+    sha = hashlib.sha256(tokens.astype(np.uint8).tobytes()).hexdigest()
+    sample, eval_tokens = ql.frozen_split(tokens)
+    ctx, n_eval, iters = ql.FROZEN_CTX, ql.FROZEN_EVAL_WINDOWS, ql.FROZEN_ITERS
+    log(f"[quality] lm_l_v1: d={cfg.head_dim}, {cfg.num_layers} layers, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads, hidden {cfg.hidden_size}, {cfg.dtype}; stream {len(tokens)} bytes, "
+        f"sha256 {sha}; sample {len(sample)} head tokens, eval {len(eval_tokens)} tail tokens")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    pq_encode_fused_stacked.launches = 0
+    (kv_k, kv_v), sample_s = timed(lambda: ql.sample_kv(params, cfg, sample, windows=ql.FROZEN_SAMPLE_WINDOWS,
+                                                          ctx=ctx, bs=8))
+    dense, dense_s = timed(lambda: ql.dense_perplexity(params, cfg, eval_tokens, max_length=ctx,
+                                                         max_windows=n_eval))
+    log(f"[quality] samples {kv_k.shape} f16 a side in {sample_s:.2f} s; dense ppl {dense['ppl']!r} "
+        f"({dense['windows']} windows, {dense_s:.2f} s)")
+    if not abs(dense["ppl"] - Q_REF_DENSE) <= Q_DENSE_RTOL * Q_REF_DENSE:
+        raise RuntimeError(f"dense perplexity {dense['ppl']!r} is not the reference's {Q_REF_DENSE!r}")
+    rows, tables, want_launches = {}, {}, 0
+    L, n_rows = cfg.num_layers, kv_k.shape[1]
+    for name, geom in ql.FROZEN_RUNGS.items():
+        cents, train_s = timed(lambda: ql.rung_cents(cfg, kv_k, kv_v, train_iters=iters, device=dev, **geom))
+        r, eval_s = timed(lambda: ql.rung_perplexity(params, cfg, eval_tokens, cents, max_length=ctx,
+                                                     max_windows=n_eval))
+        for side in ("key", "value"):  # Lloyd steps per layer and side: 2 launches on the large-n path
+            M, C, _ = cents[side].shape[1:]
+            n = min(n_rows, 256 * C)
+            want_launches += L * iters * (2 if n * C * M > kmeans.LARGE_N else 1)
+        want_launches += n_eval * L * 2  # one encode a layer and side in every prefill
+        dppl = r["ppl"] - dense["ppl"]
+        rows[name] = {"rung": name, **geom, "ppl": r["ppl"], "dppl": dppl, "rel": dppl / dense["ppl"],
+                      "bar": Q_BARS[name], "ref_dppl": Q_REF_DPPL[name], "ref_tol": Q_REF_DPPL_TOL[name],
+                      "train_s": train_s, "eval_s": eval_s, "card": card}
+        tables[name] = cents
+        print(json.dumps(rows[name]), flush=True)
+    launches["pq_encode"]["quality"] = pq_encode_fused_stacked.launches
+    log(f"[quality] launches {json.dumps({'pq_encode': pq_encode_fused_stacked.launches})} "
+        f"(want {want_launches}: Lloyd assignments and prefill encodes)")
+    failed = [f"{n} above its bar" for n, row in rows.items() if row["rel"] > row["bar"]]
+    failed += [f"{n} off the reference" for n, row in rows.items()
+               if abs(row["dppl"] - row["ref_dppl"]) > row["ref_tol"]]
+    if launches["pq_encode"]["quality"] != want_launches or failed:
+        raise RuntimeError(f"quality path check failed: {failed or 'launch count'}")
+
+    # kernel against plain version: one layer and side of dm2 from one k-means++ init
+    x = torch.as_tensor(kv_k[0], device=dev).float()
+    xs = subspace_view(x, 32, "strided").contiguous()
+    init = kmeans._kmeanspp_init(xs, 256, torch.Generator(device=dev).manual_seed(0))
+    chunk = kmeans.large_n_chunk(32, 256)
+    inertia, lloyd_s = {}, {}
+    for use_kernel in (True, False):
+        c, lloyd_s[use_kernel] = timed(lambda: kmeans.lloyd(xs, init, iters, chunk_n=chunk, xs_sub=xs,
+                                                             use_kernel=use_kernel))
+        inertia[use_kernel] = float(kmeans._inertia_large(xs, c, chunk, use_kernel=False).sum())
+    gap = abs(inertia[True] - inertia[False]) / inertia[False]
+    log(f"[quality] dm2 layer 0 K, {iters} Lloyd steps from one init: inertia kernel {inertia[True]!r}, "
+        f"plain {inertia[False]!r}, rel gap {gap:.3g} (tol {Q_INERTIA_RTOL}); {lloyd_s[True]:.3f} s vs "
+        f"{lloyd_s[False]:.3f} s")
+    # one assignment at the Lloyd shape, kernel against plain version
+    M, C, d_m = init.shape
+    ms = cuda_ms(lambda: kmeans.assign(xs, init), 20)
+    plain_ms = cuda_ms(lambda: kmeans._assign(xs, init, chunk), 3, warm=1)
+    nbytes, ops = encode_bytes(xs.shape[0], M * d_m, M, 4), encode_ops(xs.shape[0], M, C, d_m)
+    bound_ms, bound_by = bound_of(nbytes, ops, F32_OPS_PER_S)
+    log(f"[quality] Lloyd assignment ({xs.shape[0]} rows, M={M}, C={C}, d_m={d_m}, exact): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    plain = ql.rung_perplexity(params, cfg, eval_tokens, tables["dm2"], max_length=ctx,
+                               max_windows=n_eval, use_kernel=False)
+    ppl_gap = abs(plain["ppl"] - rows["dm2"]["ppl"]) / plain["ppl"]
+    log(f"[quality] dm2 ppl, prefill encode through the plain version: {plain['ppl']!r} against the kernel's "
+        f"{rows['dm2']['ppl']!r}: rel gap {ppl_gap:.3g} (tol {Q_PPL_RTOL})")
+    # the native trainer's library, built beside the kernels: its encode against the kernel's
+    xk = kv_k[0].astype(np.float32)
+    cents0 = tables["dm2"]["key"][0]
+    agree = float((torch.from_numpy(native.encode_native(xk, cents0.cpu().numpy(), "strided")).to(dev)
+                   == kmeans.assign(xs, cents0)).float().mean())
+    log(f"[quality] native encode (host threads) against the kernel, dm2 layer 0 K: {agree:.6f} equal codes")
+    if gap > Q_INERTIA_RTOL or ppl_gap > Q_PPL_RTOL or agree < ENCODE_AGREE:
+        raise RuntimeError("quality path: kernel against plain version failed")
+    log(f"[quality] phase wall {time.perf_counter() - t_phase:.2f} s on {card}")
+
+
 def build_model(dev):
     """llama-3.2-3b at full width and depth, random bf16 weights from seed 0."""
     import torch
@@ -1228,10 +1378,15 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # one nvcc per source, all started together
+    # one nvcc per source, all started together, and g++ for the native trainer's library beside them
+    from million_tpu_torch import native
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+        native_built = pool.submit(native.load)
         builds = list(pool.map(cuda_build.build, KERNELS))
+        native_built.result()
+    log(f"[build] {native.library_path().name} (g++, the native trainer)")
     for built in builds:
         usage = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
         warned = [ln.strip() for ln in built.log.splitlines() if "warning" in ln.lower()]
@@ -1258,6 +1413,9 @@ def main() -> int:
     launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
     main_path(dev, cfg, params, launches)
     serving_path(dev, cfg, params, launches)
+    del params
+    torch.cuda.empty_cache()
+    quality_path(dev, launches, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

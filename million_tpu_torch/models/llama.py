@@ -15,8 +15,7 @@ Decode attention modes:
 On CPU tensors "pq_kernel" runs the kernel's plain PyTorch version.
 
 Not in this slice of the port (each raises NotImplementedError): OPQ
-rotations (cents "Rk"/"Rv"), wide int16 codes (C > 256), distort_recent,
-return_hidden and mesh.
+rotations (cents "Rk"/"Rv"), wide int16 codes (C > 256) and mesh.
 """
 
 from __future__ import annotations
@@ -38,9 +37,11 @@ from million_tpu_torch.ops.pq_attention_ref import (
     causal_attention,
     pq_decode_attention_ref,
 )
-from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
+from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_plain, pq_encode_fused_stacked
 from million_tpu_torch.pq.ops import (
     RUNTIME_ENCODE_PRECISION,
+    pq_decode,
+    restore_channels,
     runtime_encode,
     zero_channels,
 )
@@ -302,16 +303,20 @@ def prefill(
     last_logit_only: bool = False,
     return_hidden: bool = False,
     mesh=None,
+    use_kernel: bool = True,  # False: the encode kernel's plain version on any device
 ) -> torch.Tensor:
     """Full prefill; returns logits (bs, n, V) f32, or (bs, 1, V) with
-    last_logit_only. The cache is written IN PLACE (million_tpu returns a new
-    one).
+    last_logit_only, or with return_hidden the pre-head hidden states (bs,
+    n, D) (perplexity projects them a chunk at a time). The cache is written
+    IN PLACE (million_tpu returns a new one).
 
     mode "pq": the 4-aligned prefix is encoded into the code arena (outlier
     channels zeroed before the encode and stored exactly), the ragged tail
-    goes to the residual window; attention is exact. mode "dense": the
-    bf16-KV baseline."""
-    _unsupported(distort_recent=distort_recent, return_hidden=return_hidden, mesh=mesh)
+    goes to the residual window; attention is exact, or with distort_recent
+    runs over decode(encode(k, v)) of every position with the outlier
+    channels restored exactly (the reference's perplexity protocol).
+    mode "dense": the bf16-KV baseline."""
+    _unsupported(mesh=mesh)
     if mode not in ("pq", "dense"):
         raise ValueError(f"unknown prefill mode {mode!r}")
     bs, n = input_ids.shape
@@ -319,6 +324,7 @@ def prefill(
     rope = _rope(cfg, pos_offset + torch.arange(n, device=x.device), x.device)
     n4 = (n // WORD) * WORD
     tail = n - n4
+    n_enc = n if distort_recent else n4  # the distortion needs the tail's codes too
     if mode == "pq":
         _check_cents(cents)
     for i in range(cfg.num_layers):
@@ -326,7 +332,7 @@ def prefill(
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, rope)
         if mode == "pq":
-            k_enc, v_enc = k[:, :, :n4], v[:, :, :n4]
+            k_enc, v_enc = k[:, :, :n_enc], v[:, :, :n_enc]
             k_out = v_out = None
             if "k_outlier_idx" in cents:
                 koidx = cents["k_outlier_idx"][i]
@@ -336,13 +342,21 @@ def prefill(
                 voidx = cents["v_outlier_idx"][i]
                 v_enc = zero_channels(v_enc, voidx)
                 v_out = v[:, :, :n4].index_select(-1, voidx.long())
-            kc = runtime_encode(k_enc, cents["key"][i], SUBSPACE_LAYOUT)
-            vc = runtime_encode(v_enc, cents["value"][i], SUBSPACE_LAYOUT)
+            kc = _prefill_encode(k_enc, cents["key"][i], use_kernel)
+            vc = _prefill_encode(v_enc, cents["value"][i], use_kernel)
             stacked_prefix_write(
-                cache, i, kc, vc,
+                cache, i, kc[:, :, :n4], vc[:, :, :n4],
                 k[:, :, n4:] if tail else None, v[:, :, n4:] if tail else None,
                 k_out=k_out, v_out=v_out,
             )
+            if distort_recent:
+                k_hat = pq_decode(kc, cents["key"][i], SUBSPACE_LAYOUT).to(k.dtype)
+                v_hat = pq_decode(vc, cents["value"][i], SUBSPACE_LAYOUT).to(v.dtype)
+                if "k_outlier_idx" in cents:
+                    k_hat = restore_channels(k_hat, k, koidx)
+                if "v_outlier_idx" in cents:
+                    v_hat = restore_channels(v_hat, v, voidx)
+                k, v = k_hat, v_hat
         else:
             dense_write(cache, i, k, v)
         attn = causal_attention(q, k, v)
@@ -355,9 +369,19 @@ def prefill(
         cache["r"] += tail
     else:
         cache["length"] += n
+    if return_hidden:
+        return x
     if last_logit_only:
         x = x[:, -1:]
     return _logits(params, cfg, x)
+
+
+def _prefill_encode(x: torch.Tensor, cents: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    """The prefill's encode at RUNTIME_ENCODE_PRECISION: runtime_encode, or
+    with use_kernel=False the fused kernel's plain version on any device."""
+    if use_kernel:
+        return runtime_encode(x, cents, SUBSPACE_LAYOUT)
+    return pq_encode_fused_plain(x[None], cents[None], SUBSPACE_LAYOUT, RUNTIME_ENCODE_PRECISION)[0]
 
 
 def _masked_dense_decode(q, k, v):

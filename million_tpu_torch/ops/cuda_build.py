@@ -65,20 +65,25 @@ def build(name: str) -> BuiltLibrary:
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log, build_s = "", 0.0
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # build into a temporary name and rename: concurrent builds of the
-        # same source never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
-        os.replace(tmp, out)
+        log = compile_into(out, [find_nvcc(), *NVCC_FLAGS], src)
         build_s = time.perf_counter() - t0
     built = BuiltLibrary(ctypes.CDLL(str(out)), out, build_s, log)
     _LOADED[name] = built
     return built
+
+
+def compile_into(out: Path, cmd, src: Path) -> str:
+    """Run `cmd -o <temporary> src` and rename the result to `out`, so that
+    concurrent builds of the same source never load a half-written library.
+    Returns the compiler's output; raises if it fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    proc = subprocess.run([*cmd, "-o", tmp, str(src)], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{Path(cmd[0]).name} failed for {src.name}:\n{log}")
+    os.replace(tmp, out)
+    return log

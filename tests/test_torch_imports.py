@@ -47,6 +47,15 @@ def test_sources_cover_the_serving_slice():
         assert rel in names, rel
 
 
+def test_sources_cover_the_quality_slice():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("million_tpu_torch/pq/kmeans.py", "million_tpu_torch/native.py",
+                "million_tpu_torch/benchmarks/perplexity.py", "million_tpu_torch/benchmarks/tiny_lm.py",
+                "million_tpu_torch/benchmarks/quality_ladder.py",
+                "million_tpu_torch/utils/ledger.py"):
+        assert rel in names, rel
+
+
 BANNED_IN_CUDA = ("torch/", "ATen", "cublas", "cudnn", "cutlass")
 
 
@@ -111,6 +120,7 @@ def test_modules_import_without_building():
     from million_tpu_torch.ops import (causal_attention_kernel, pq_attention_kernel, pq_chunk_attention_kernel,
                                        pq_encode_kernel, pq_paged_attention_kernel)
     from million_tpu_torch.runtime import scheduler  # noqa: F401
+    from million_tpu_torch.benchmarks import quality_ladder  # noqa: F401
 
     for mod in (causal_attention_kernel, pq_attention_kernel, pq_chunk_attention_kernel, pq_encode_kernel,
                 pq_paged_attention_kernel):

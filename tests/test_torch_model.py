@@ -228,9 +228,11 @@ def test_later_slices_raise(rng, params):
     _, tcents, gkw = make_cents(rng, "dm2")
     tc = caches(gkw)[1]
     ids = torch.zeros((BS, 4), dtype=torch.long)
-    for kw in (dict(distort_recent=True), dict(return_hidden=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            tl.prefill(tp, TCFG, ids, tc, tcents, **kw)
+    with pytest.raises(NotImplementedError):
+        tl.prefill(tp, TCFG, ids, tc, tcents, mesh=object())
+    # distort_recent and return_hidden arrived with the quality slice
+    hidden = tl.prefill(tp, TCFG, ids, caches(gkw)[1], tcents, distort_recent=True, return_hidden=True)
+    assert hidden.shape == (BS, 4, TCFG.hidden_size)
     with pytest.raises(NotImplementedError):
         tl.prefill(tp, TCFG, ids, tc, {**tcents, "Rk": None})
     with pytest.raises(NotImplementedError):
