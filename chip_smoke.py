@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --kernels-only  # phases 1-3 and the odd exact channels, no result line
+    python3 chip_smoke.py --pipeline-only # the build, then the pipeline phase alone, no result line
 
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
@@ -86,6 +87,22 @@ result line:
        layer and side trained from one init with the kernel and with the
        plain assignment (inertia), the dm2 perplexity through the plain
        encode, the native library's encode against the kernel's;
+     - the pipeline (`million_tpu_torch.cli.main`, llama-3.2-3b at full
+       width, random weights, artifacts in a temporary directory): baseline,
+       sampling, training and evaluation at dm2 (65,536 sample rows a layer
+       and side, M=64, C=256) and at dm4o128 (32,768 rows, M=32, C=128,
+       16 + 16 exact channels), the speedtest at 1,024 / 4,096 / 32,000
+       prompt tokens and 64 new tokens, dense and PQ; the evaluation with OPQ
+       (random orthogonal rotations); the perplexity kind on
+       tests/fixtures/realtext.txt (2 windows of 2,048, distorted prefill)
+       with the dm2 run's trained tables; the stage walls, the sample bytes,
+       the training time per layer and side, the TTFT / TPOT rows, the tables
+       each evaluation loaded and the launch counts (B7 in every Lloyd step
+       and prefill, B1 in every decode step); at each geometry, layer 0 K's
+       Lloyd steps from one init with the kernel and with its plain version
+       (final inertias within 1e-4); one teacher-forced decode with the
+       trained dm2 tables and one with the rotations, kernel against the
+       plain oracle;
   6. a JSON line of the kernels, then the card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
@@ -97,6 +114,9 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
 
 BS, PROMPT, N_MAX, NEW_TOKENS, FLUSH = 4, 32000, 32768, 160, 16
 CHUNK, CHUNK_NEW_TOKENS = 4096, 17  # the chunked path: 8 chunks, 16 decode steps
@@ -182,6 +202,23 @@ Q_SEED_STD = {"dm2": (0.0033115, 0.0069476), "dm4+16/16 C=256": (0.0090909, 0.00
 Q_DENSE_RTOL = 1e-4
 Q_REF_DPPL_TOL = {n: max(0.01, 0.25 * abs(Q_REF_DPPL[n]), 4 * (sp**2 + sj**2 / 5) ** 0.5)
                   for n, (sp, sj) in Q_SEED_STD.items()}
+# the pipeline phase: million_tpu_torch.cli at full llama-3.2-3b width, in a temporary directory
+PIPE_LENGTHS, PIPE_DECODE = [1024, 4096, 32000], 64  # speedtest prefill lengths, decode tokens
+PIPE_TEXT = ROOT / "tests" / "fixtures" / "realtext.txt"  # the perplexity kind's text
+# name, geometry of the launch counts, config under configs/, stages and overrides, and the tables
+# its evaluation must load: its own training's, `_synthetic` (load_cents's random tables), or those
+# of an earlier run (copied into the artifact directory of this run's dataset)
+PIPE_RUNS = (
+    ("dm2", "dm2", "llama-3.2-3b.json", ["-p", "baseline", "sampling", "training", "evaluation"], "own"),
+    ("dm4o128", "dm4_outlier_c128", "llama-3.2-3b-dm4o128.json",
+     ["-p", "baseline", "sampling", "training", "evaluation"], "own"),
+    ("dm2 OPQ", "dm2", "llama-3.2-3b.json", ["-p", "evaluation", "-o", "pq.opq=true"], "_synthetic"),
+    ("dm2 perplexity", "dm2", "llama-3.2-3b.json",
+     ["-p", "evaluation", "-o", f"run.dataset={PIPE_TEXT}", "-o", "run.max_length=2048",
+      "-o", "run.max_windows=2"], "dm2"),
+)
+PIPE_BUDGET = {"dm2": (65536, (28, 64, 256, 2)), "dm4o128": (32768, (28, 32, 128, 4))}  # rows a layer, npz
+PIPE_CHECK_PROMPT = 4096  # prompt of the teacher-forced checks
 # kernel against plain version on the quality path: the final inertia of one layer and side trained
 # from one k-means++ init (near-ties may split the other way, index_add_ sums in another order), and
 # the dm2 perplexity with the prefill encode through the plain version ("fast" ties may flip)
@@ -1103,6 +1140,33 @@ def serving_path(dev, cfg, params, launches):
         torch.cuda.empty_cache()
 
 
+def lloyd_pair(x, M: int, C: int, iters: int):
+    """One layer and side's codebooks trained twice from one k-means++ init
+    along train_pq's route (the large-n step above kmeans.LARGE_N): every
+    assignment through the encode kernel, then through its plain version.
+    Both final inertias are taken through the plain version. -> (relative
+    gap, {use_kernel: inertia}, {use_kernel: seconds}, xs, init)."""
+    import torch
+
+    from million_tpu_torch.pq import kmeans
+    from million_tpu_torch.pq.ops import subspace_view
+
+    xs = subspace_view(x.float(), M, "strided").contiguous()
+    init = kmeans._kmeanspp_init(xs, C, torch.Generator(device=x.device).manual_seed(0))
+    n, chunk = xs.shape[0], kmeans.large_n_chunk(M, C)
+    large = {"chunk_n": chunk, "xs_sub": xs[::max(n // kmeans.SUB_CAP, 1)][:kmeans.SUB_CAP]}
+    kw = large if n * C * M > kmeans.LARGE_N else {}
+    inertia, secs = {}, {}
+    for use_kernel in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = kmeans.lloyd(xs, init, iters, use_kernel=use_kernel, **kw)
+        torch.cuda.synchronize()
+        secs[use_kernel] = time.perf_counter() - t0
+        inertia[use_kernel] = float(kmeans._inertia_large(xs, c, chunk, use_kernel=False).sum())
+    return abs(inertia[True] - inertia[False]) / inertia[False], inertia, secs, xs, init
+
+
 def quality_path(dev, launches, card):
     """The quality ladder on lm_l_v1 at full width (d=64, 6 layers, 8 / 4 heads,
     f32): K/V sampled from its dense prefill, codebooks trained with the port's
@@ -1124,7 +1188,6 @@ def quality_path(dev, launches, card):
     from million_tpu_torch.benchmarks.tiny_lm import build_corpus_frozen, checkpoint_path_l, load_checkpoint
     from million_tpu_torch.ops.pq_encode_kernel import encode_bytes, encode_ops, pq_encode_fused_stacked
     from million_tpu_torch.pq import kmeans
-    from million_tpu_torch.pq.ops import subspace_view
 
     t_phase = time.perf_counter()
     params, cfg = load_checkpoint(checkpoint_path_l(), device=dev)
@@ -1179,23 +1242,14 @@ def quality_path(dev, launches, card):
         raise RuntimeError(f"quality path check failed: {failed or 'launch count'}")
 
     # kernel against plain version: one layer and side of dm2 from one k-means++ init
-    x = torch.as_tensor(kv_k[0], device=dev).float()
-    xs = subspace_view(x, 32, "strided").contiguous()
-    init = kmeans._kmeanspp_init(xs, 256, torch.Generator(device=dev).manual_seed(0))
-    chunk = kmeans.large_n_chunk(32, 256)
-    inertia, lloyd_s = {}, {}
-    for use_kernel in (True, False):
-        c, lloyd_s[use_kernel] = timed(lambda: kmeans.lloyd(xs, init, iters, chunk_n=chunk, xs_sub=xs,
-                                                             use_kernel=use_kernel))
-        inertia[use_kernel] = float(kmeans._inertia_large(xs, c, chunk, use_kernel=False).sum())
-    gap = abs(inertia[True] - inertia[False]) / inertia[False]
+    gap, inertia, lloyd_s, xs, init = lloyd_pair(torch.as_tensor(kv_k[0], device=dev), 32, 256, iters)
     log(f"[quality] dm2 layer 0 K, {iters} Lloyd steps from one init: inertia kernel {inertia[True]!r}, "
         f"plain {inertia[False]!r}, rel gap {gap:.3g} (tol {Q_INERTIA_RTOL}); {lloyd_s[True]:.3f} s vs "
         f"{lloyd_s[False]:.3f} s")
     # one assignment at the Lloyd shape, kernel against plain version
     M, C, d_m = init.shape
     ms = cuda_ms(lambda: kmeans.assign(xs, init), 20)
-    plain_ms = cuda_ms(lambda: kmeans._assign(xs, init, chunk), 3, warm=1)
+    plain_ms = cuda_ms(lambda: kmeans._assign(xs, init, kmeans.large_n_chunk(M, C)), 3, warm=1)
     nbytes, ops = encode_bytes(xs.shape[0], M * d_m, M, 4), encode_ops(xs.shape[0], M, C, d_m)
     bound_ms, bound_by = bound_of(nbytes, ops, F32_OPS_PER_S)
     log(f"[quality] Lloyd assignment ({xs.shape[0]} rows, M={M}, C={C}, d_m={d_m}, exact): kernel {ms:.4f} ms, "
@@ -1214,6 +1268,147 @@ def quality_path(dev, launches, card):
     if gap > Q_INERTIA_RTOL or ppl_gap > Q_PPL_RTOL or agree < ENCODE_AGREE:
         raise RuntimeError("quality path: kernel against plain version failed")
     log(f"[quality] phase wall {time.perf_counter() - t_phase:.2f} s on {card}")
+
+
+def pipeline_path(dev, launches, card):
+    """The pipeline CLI (`million_tpu_torch.cli.main`, as `python -m
+    million_tpu_torch.cli` runs it) at full llama-3.2-3b width, artifacts and
+    results in one temporary directory: all four stages at dm2 and at the
+    dm4o128 geometry (speedtest at PIPE_LENGTHS, PIPE_DECODE new tokens),
+    then the evaluation stage with OPQ (load_cents's random orthogonal
+    rotations) and the perplexity kind on PIPE_TEXT with the dm2 run's
+    trained tables (copied into that dataset's artifact directory). Every
+    count is set to 0 before a run and read after it
+    (launches[k][geometry]["pipeline"]). Checks: the sample rows a layer,
+    the artifact's shapes, the Lloyd steps at each geometry's shapes (layer
+    0 K of the run's own samples) kernel against plain version, the tables
+    each evaluation row names, finite TTFT / TPOT rows without an OOM
+    entry, B7 and B1 launched; then one teacher-forced decode with the
+    trained dm2 tables and one with the rotations, kernel against the plain
+    oracle."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch import cli
+    from million_tpu_torch.runtime.generate import generate
+    from million_tpu_torch.pq.ops import zero_channels
+    from million_tpu_torch.utils.config import load_config
+    from million_tpu_torch.utils.fvecs import reservoir_sample_fvecs
+    from million_tpu_torch.utils.ledger import read_results
+
+    wrappers = path_wrappers()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as tmp:
+        common = ["-o", f"run.artifacts={tmp}/artifacts", "-o", f"run.results={tmp}/results_torch.jsonl",
+                  "-o", f"run.prefill_lengths={json.dumps(PIPE_LENGTHS)}", "-o", f"run.decode_length={PIPE_DECODE}"]
+        trained = {}  # run name -> its artifact
+        for name, geom, config, args, tables in PIPE_RUNS:
+            if tables in trained:  # that run's tables, where this run's dataset looks for them
+                src = Path(trained[tables])
+                want_cents = src.parent.parent / PIPE_TEXT.name / src.name
+                want_cents.parent.mkdir(parents=True, exist_ok=True)
+                shutil.copyfile(src, want_cents)
+            else:
+                want_cents = tables
+            n_rows = len(read_results(f"{tmp}/results_torch.jsonl"))
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            out = cli.main(["-f", str(ROOT / "configs" / config), *args, *common])
+            for k, w in wrappers.items():
+                launches[k][geom]["pipeline"] = launches[k][geom].get("pipeline", 0) + w.launches
+            got = {k: w.launches for k, w in wrappers.items()}
+            walls = {s: round(wall, 2) for s, (_, wall) in out.items()}
+            log(f"[pipeline] {name}: stage walls {walls} s, launches {got}, peak mem "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            if got["pq_encode"] <= 0 or ("perplexity" not in name and got["pq_decode_attention"] <= 0):
+                raise RuntimeError(f"pipeline {name}: B7 / B1 not launched: {got}")
+            if "sampling" in out:
+                budget, shape = PIPE_BUDGET[name]
+                res = out["sampling"][0]
+                tr = out["training"][0]
+                L, d = shape[0], shape[1] * shape[3]
+                sizes = {f.name: os.path.getsize(f) for f in Path(tr["path"]).parent.glob("layer*.fvecs")}
+                want = budget * (d + 1) * 4
+                log(f"[pipeline] {name}: sampling {res['rows_per_layer']} rows a layer and side from "
+                    f"{res['windows']} windows, {res['bytes']} B of fvecs ({len(sizes)} files)")
+                if res["rows_per_layer"] != budget or len(sizes) != 2 * L or set(sizes.values()) != {want}:
+                    raise RuntimeError(f"pipeline {name}: sample files {res} / sizes {set(sizes.values())}")
+                secs = np.asarray(tr["seconds_per_layer_side"])
+                log(f"[pipeline] {name}: training {tr['samples']} samples a layer and side, s per layer: "
+                    f"K mean {secs[:, 0].mean():.3f} (min {secs[:, 0].min():.3f}, max {secs[:, 0].max():.3f}), "
+                    f"V mean {secs[:, 1].mean():.3f} (min {secs[:, 1].min():.3f}, max {secs[:, 1].max():.3f})")
+                with np.load(tr["path"]) as z:
+                    arrays = {k: z[k] for k in z.files}
+                ok = all(arrays[k].shape == shape and np.isfinite(arrays[k]).all() for k in ("key", "value"))
+                exact = json.loads((ROOT / "configs" / config).read_text()).get("pq", {}).get("outlier_k", 0)
+                if exact:
+                    ok = ok and all(arrays[k].shape == (L, exact) and arrays[k].dtype == np.int32
+                                    for k in ("k_outlier_idx", "v_outlier_idx"))
+                log(f"[pipeline] {name}: artifact {Path(tr['path']).name}: "
+                    f"{ {k: v.shape for k, v in arrays.items()} }")
+                if not ok:
+                    raise RuntimeError(f"pipeline {name}: artifact shapes or values wrong")
+                trained[name] = want_cents = tr["path"]
+                # the Lloyd steps at this geometry, kernel against plain version: layer 0 K as the
+                # training stage read it (its exact channels zeroed)
+                xk = torch.from_numpy(reservoir_sample_fvecs(Path(tr["path"]).parent / "layer0.key.fvecs",
+                                                             budget, seed=0)).to(dev)
+                if exact:
+                    xk = zero_channels(xk, torch.as_tensor(arrays["k_outlier_idx"][0], device=dev))
+                iters = load_config([str(ROOT / "configs" / config)], [], base=cli.DEFAULTS).pq.train_iters
+                gap, inertia, secs, _, _ = lloyd_pair(xk, shape[1], shape[2], iters)
+                log(f"[pipeline] {name} layer 0 K ({budget} rows, M={shape[1]}, C={shape[2]}, d_m={shape[3]}), "
+                    f"{iters} Lloyd steps from one init: inertia kernel {inertia[True]!r}, plain "
+                    f"{inertia[False]!r}, rel gap {gap:.3g} (tol {Q_INERTIA_RTOL}); {secs[True]:.3f} s vs "
+                    f"{secs[False]:.3f} s")
+                if not gap <= Q_INERTIA_RTOL:
+                    raise RuntimeError(f"pipeline {name}: Lloyd steps, kernel against plain version failed")
+                del xk
+            for row in read_results(f"{tmp}/results_torch.jsonl")[n_rows:]:
+                if row["stage"] == "evaluation":
+                    log(f"[pipeline] {name}: evaluation tables {row['centroids']}")
+                    if row["centroids"] != str(want_cents):
+                        raise RuntimeError(f"pipeline {name}: evaluation ran on {row['centroids']}, "
+                                           f"not {want_cents}")
+                res = row["result"]
+                if "ppl" in res:
+                    log(f"[pipeline] {name}: {row['stage']} ({row['mode']}) perplexity {res['ppl']!r} over "
+                        f"{res['windows']} windows ({card})")
+                    if not np.isfinite(res["ppl"]):
+                        raise RuntimeError(f"pipeline {name}: perplexity not finite")
+                    continue
+                for r in res["results"]:
+                    bad = "oom" in r or not (np.isfinite(r["ttft_s"]) and np.isfinite(r["tpot_s"]))
+                    log(f"[speedtest] {name} {row['stage']} {row['mode']}: prefill {r['prefill_length']}: "
+                        f"TTFT {r.get('ttft_s', float('nan')):.4f} s, TPOT {r.get('tpot_s', float('nan')) * 1e3:.3f} "
+                        f"ms ({card})")
+                    if bad:
+                        raise RuntimeError(f"pipeline {name}: bad speedtest row {r}")
+
+        # teacher-forced decode steps, kernel against the plain oracle: the trained dm2 tables, the rotations
+        cfg = load_config([str(ROOT / "configs" / "llama-3.2-3b.json")],
+                          [f"run.artifacts={tmp}/artifacts"], base=cli.DEFAULTS)
+        mcfg, params = cli.build_model(cfg, device=dev)
+        ids = torch.randint(0, mcfg.vocab_size, (1, PIPE_CHECK_PROMPT), generator=torch.Generator(device=dev).manual_seed(2),
+                            device=dev)
+        for what, c in (("trained dm2", cfg), ("OPQ", load_config([], ["pq.opq=true"], base=cfg.to_dict()))):
+            if cli.cents_path(c, mcfg).exists() != (what == "trained dm2"):
+                raise RuntimeError(f"pipeline teacher-forced check ({what}): unexpected artifact state")
+            tables = cli.load_cents(c, mcfg, device=dev)
+            res, _ = generate(params, mcfg, ids, cli.make_pq_cache_factory(c, mcfg, device=dev)(), tables,
+                              mode="pq_kernel", max_new_tokens=5, selfcheck_every=1, device=dev)
+            log(f"[pipeline] {what} tables: teacher-forced max |logit(pq_kernel) - logit(pq)| over 4 steps "
+                f"{res.selfcheck_max_diff:.4g} (tol {LOGIT_TOL}); rotations {'Rk' in tables}")
+            if not res.selfcheck_max_diff <= LOGIT_TOL or ("Rk" in tables) != (what == "OPQ"):
+                raise RuntimeError(f"pipeline teacher-forced check failed ({what})")
+        del params
+    torch.cuda.empty_cache()
+    log(f"[pipeline] phase wall {time.perf_counter() - t_phase:.2f} s on {card}")
 
 
 def build_model(dev):
@@ -1395,6 +1590,9 @@ def main() -> int:
             f"{'; warnings: ' + ' | '.join(warned) if warned else ''}")
     log(f"[build] {len(builds)} libraries in {time.perf_counter() - t0:.2f} s wall")
 
+    if "--pipeline-only" in sys.argv[1:]:
+        pipeline_path(dev, {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}, card)
+        return 0
     # the paths run a bf16 model, whose partials take the tensor-core versions
     causal = causal_phase(dev)
     rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev).items() if e == "stacked"},
@@ -1416,6 +1614,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     quality_path(dev, launches, card)
+    pipeline_path(dev, launches, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

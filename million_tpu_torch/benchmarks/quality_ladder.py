@@ -8,8 +8,9 @@ Lloyd assignment is the fused encode kernel), evaluate distorted-prefill
 perplexity (every PQ prefill encodes through the same kernel) -- and reports
 Δppl against dense.
 
-Rungs as in the reference; two kinds raise NotImplementedError, for later
-slices of the port: nbits > 8 (wide int16 codes) and OPQ (rotations).
+Rungs as in the reference, the OPQ rung included (rotations and codebooks
+trained together by pq/kmeans.train_opq). Rungs with nbits > 8 raise
+NotImplementedError: they need wide int16 codes, a later slice of the port.
 
     python -m million_tpu_torch.benchmarks.quality_ladder --fast --device cpu
     python -m million_tpu_torch.benchmarks.quality_ladder --fast      # on the card
@@ -46,7 +47,7 @@ from million_tpu_torch.benchmarks.tiny_lm import (
 from million_tpu_torch.cache.dense_cache import DenseCacheConfig, init_dense_state
 from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
 from million_tpu_torch.models import llama
-from million_tpu_torch.pq.kmeans import train_pq
+from million_tpu_torch.pq.kmeans import train_opq, train_pq
 from million_tpu_torch.pq.ops import select_outlier_channels, zero_channels
 
 
@@ -95,15 +96,20 @@ def sample_kv(params, cfg, tokens, *, windows=8, ctx=512, bs=8):
     return np.concatenate(ks, axis=1), np.concatenate(vs, axis=1)
 
 
-def train_cents(kv, M, nbits, *, iters=15, seed=0, device="cuda") -> torch.Tensor:
-    """Per-layer codebooks (L, M, C, d_m) f32 on `device` from kv (L, rows,
-    d), layer l seeded with seed + l. (The reference's OPQ branch waits for
-    the rotations; pq.kmeans.train_opq trains them.)"""
-    return torch.stack([
-        train_pq(torch.as_tensor(kv[l], device=device), M=M, nbits=nbits, iters=iters, seed=seed + l,
-                 layout="strided")
-        for l in range(kv.shape[0])
-    ])
+def train_cents(kv, M, nbits, *, iters=15, opq=False, seed=0, device="cuda"):
+    """Per-layer codebooks from kv (L, rows, d), layer l seeded with seed + l:
+    (codebooks (L, M, C, d_m) f32, OPQ rotations (L, d, d) f32 with opq=True
+    else None), on `device`."""
+    cents, rots = [], []
+    for l in range(kv.shape[0]):
+        x = torch.as_tensor(kv[l], device=device)
+        if opq:
+            R, c = train_opq(x, M=M, nbits=nbits, iters=iters, seed=seed + l, layout="strided")
+            rots.append(R)
+        else:
+            c = train_pq(x, M=M, nbits=nbits, iters=iters, seed=seed + l, layout="strided")
+        cents.append(c)
+    return torch.stack(cents), (torch.stack(rots) if opq else None)
 
 
 def _split_outliers(kv, k: int, device):
@@ -132,8 +138,6 @@ def rung_cents(cfg, kv_k, kv_v, *, M_k: int, nbits_k: int, M_v: Optional[int] = 
     if max(nbits_k, nbits_v) > 8:
         raise NotImplementedError(
             "rungs with nbits > 8 need wide int16 codes, a later slice of the port")
-    if opq:
-        raise NotImplementedError("OPQ rungs need the rotations (Rk/Rv), a later slice of the port")
     budget = 256 * (2 ** max(nbits_k, nbits_v))
     kv_k_b, kv_v_b = kv_k[:, :budget], kv_v[:, :budget]
     cents = {}
@@ -141,8 +145,12 @@ def rung_cents(cfg, kv_k, kv_v, *, M_k: int, nbits_k: int, M_v: Optional[int] = 
         cents["v_outlier_idx"], kv_v_b = _split_outliers(kv_v_b, outlier_k, device)
     if outlier_kk:
         cents["k_outlier_idx"], kv_k_b = _split_outliers(kv_k_b, outlier_kk, device)
-    cents["key"] = train_cents(kv_k_b, M_k, nbits_k, iters=train_iters, seed=seed, device=device)
-    cents["value"] = train_cents(kv_v_b, M_v, nbits_v, iters=train_iters, seed=seed + 100, device=device)
+    cents["key"], Rk = train_cents(kv_k_b, M_k, nbits_k, iters=train_iters, opq=opq, seed=seed,
+                                   device=device)
+    cents["value"], Rv = train_cents(kv_v_b, M_v, nbits_v, iters=train_iters, opq=opq, seed=seed + 100,
+                                     device=device)
+    if opq:
+        cents["Rk"], cents["Rv"] = Rk, Rv
     return cents
 
 

@@ -58,13 +58,18 @@ def params_from_numpy(tree: Dict[str, Any], dtype: torch.dtype = torch.bfloat16,
 
 
 def cents_from_numpy(cents: Dict[str, Any], device="cuda") -> Dict[str, torch.Tensor]:
-    """{"key", "value"[, "k_outlier_idx", "v_outlier_idx"]} -> f32 codebooks
-    (L, M, C, d_m) and int32 channel indices (L, O), contiguous on device."""
+    """{"key", "value"[, "Rk", "Rv"][, "k_outlier_idx", "v_outlier_idx"]} ->
+    f32 codebooks (L, M, C, d_m), f32 OPQ rotations (L, d, d) and int32
+    channel indices (L, O), contiguous on device. The rotations come as a
+    pair or not at all."""
     dev = resolve_device(device)
-    if "Rk" in cents or "Rv" in cents:
-        raise NotImplementedError("OPQ rotations are a later slice of the port")
+    if ("Rk" in cents) != ("Rv" in cents):
+        raise ValueError("OPQ needs both rotations, Rk and Rv")
     out = {"key": _tensor(cents["key"], torch.float32, dev),
            "value": _tensor(cents["value"], torch.float32, dev)}
+    for k in ("Rk", "Rv"):
+        if k in cents:
+            out[k] = _tensor(cents[k], torch.float32, dev)
     for k in ("k_outlier_idx", "v_outlier_idx"):
         if k in cents:
             out[k] = _tensor(cents[k], torch.int32, dev)

@@ -26,8 +26,12 @@ Unlike the reference package's plain route, the plain history route here
 applies the outlier terms, because it is the kernel's plain version. The
 reference's power-of-two block bucketing and kernel block choice limit XLA
 recompiles and Mosaic block shapes; the kernel here takes the history length
-as a host integer. Not in this slice (each raises NotImplementedError): mesh
-and OPQ rotations.
+as a host integer.
+
+OPQ (cents "Rk" / "Rv"): the stored k / v rotate; the in-chunk partial stays
+in the original space, the history partial runs in rotated space (q rotated
+by Rk) and its output unrotates by Rv^T once per layer and chunk, before the
+two partials merge. Not in this slice (raises NotImplementedError): mesh.
 """
 
 from __future__ import annotations
@@ -42,10 +46,11 @@ from million_tpu_torch.models.llama import (
     SUBSPACE_LAYOUT,
     ModelConfig,
     Params,
-    _check_cents,
     _layer,
+    _layer_rots,
     _logits,
     _mlp,
+    _opq_rotate,
     _qkv,
     _rms_norm,
     _rope,
@@ -113,7 +118,10 @@ def _prefill_one_chunk(
         lp = _layer(params, i)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, rope)
-        k_enc, v_enc = k[:, :, :n4], v[:, :, :n4]
+        Rk, Rv = _layer_rots(cents, i)
+        k_st = k if Rk is None else _opq_rotate(k, Rk)
+        v_st = v if Rv is None else _opq_rotate(v, Rv)
+        k_enc, v_enc = k_st[:, :, :n4], v_st[:, :, :n4]
         k_out = v_out = None
         hokw = {}
         if "k_outlier_idx" in cents:
@@ -130,15 +138,17 @@ def _prefill_one_chunk(
         vc = runtime_encode(v_enc, cents["value"][i], SUBSPACE_LAYOUT)
         stacked_prefix_write(
             cache, i, kc, vc,
-            k[:, :, n4:] if tail else None, v[:, :, n4:] if tail else None,
+            k_st[:, :, n4:] if tail else None, v_st[:, :, n4:] if tail else None,
             k_out=k_out, v_out=v_out,
         )
         attn, lse_c = (causal_partial if use_kernel else causal_partial_plain)(q, k, v, scale)
         if n_prev:
             history = pq_chunk_history_attention if use_kernel else _history_partial
             out_h, lse_h = history(
-                q, cache["key_codes"][i], cache["value_codes"][i], cents["key"][i],
+                q if Rk is None else _opq_rotate(q, Rk), cache["key_codes"][i], cache["value_codes"][i], cents["key"][i],
                 cents["value"][i], n_prev, scale, hist_block=hist_block, **hokw)
+            if Rv is not None:  # back to the in-chunk partial's V basis before the merge
+                out_h = _opq_rotate(out_h, Rv.t())
             attn, _ = merge_two_partials(attn, lse_c, out_h, lse_h)
         attn = attn.to(x.dtype).transpose(1, 2).reshape(bs, nc, -1)
         x = x + F.linear(attn, lp["wo"]).to(x.dtype)
@@ -173,7 +183,6 @@ def chunked_prefill(
     a time (its memory bound); the kernel walks the history in its own tiles
     and does not read it."""
     _unsupported(mesh=mesh)
-    _check_cents(cents)
     if chunk <= 0 or chunk % WORD:
         raise ValueError("chunk must be a positive multiple of 4")
     if hist_block <= 0:

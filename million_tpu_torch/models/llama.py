@@ -14,8 +14,14 @@ Decode attention modes:
               residual window, LSE-merged (million_tpu's "pq_pallas").
 On CPU tensors "pq_kernel" runs the kernel's plain PyTorch version.
 
-Not in this slice of the port (each raises NotImplementedError): OPQ
-rotations (cents "Rk"/"Rv"), wide int16 codes (C > 256) and mesh.
+OPQ: cents may carry per-layer rotations "Rk" / "Rv" (L, d, d). The cache
+then lives in rotated space: the stored k / v are rotated in f32 and cast
+back, the decode q rotates by Rk, and the attention output unrotates by Rv^T
+before wo. Prefill attention stays in the original space. The rotations are
+plain matrix products outside the kernels, as in the reference.
+
+Not in this slice of the port (each raises NotImplementedError): wide int16
+codes (C > 256) and mesh.
 """
 
 from __future__ import annotations
@@ -279,9 +285,17 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return _mm_f32(x.to(head.dtype), head)
 
 
-def _check_cents(cents) -> None:
-    if "Rk" in cents or "Rv" in cents:
-        raise NotImplementedError("OPQ rotations are a later slice of the port")
+def _opq_rotate(x: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """An OPQ rotation on the head-dim axis, x (..., d) @ R (d, d), in f32
+    and cast back to x's dtype (not RoPE's _rotate)."""
+    return torch.matmul(x.to(torch.float32), R).to(x.dtype)
+
+
+def _layer_rots(cents, i: int):
+    """Layer i's OPQ rotations (Rk, Rv), or (None, None) without OPQ."""
+    if cents is None or "Rk" not in cents:
+        return None, None
+    return cents["Rk"][i], cents["Rv"][i]
 
 
 def _unsupported(**flags) -> None:
@@ -325,37 +339,42 @@ def prefill(
     n4 = (n // WORD) * WORD
     tail = n - n4
     n_enc = n if distort_recent else n4  # the distortion needs the tail's codes too
-    if mode == "pq":
-        _check_cents(cents)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, rope)
         if mode == "pq":
-            k_enc, v_enc = k[:, :, :n_enc], v[:, :, :n_enc]
+            # OPQ: only the stored k / v rotate; the attention below stays in
+            # the original space
+            Rk, Rv = _layer_rots(cents, i)
+            k_st = k if Rk is None else _opq_rotate(k, Rk)
+            v_st = v if Rv is None else _opq_rotate(v, Rv)
+            k_enc, v_enc = k_st[:, :, :n_enc], v_st[:, :, :n_enc]
             k_out = v_out = None
             if "k_outlier_idx" in cents:
                 koidx = cents["k_outlier_idx"][i]
                 k_enc = zero_channels(k_enc, koidx)
-                k_out = k[:, :, :n4].index_select(-1, koidx.long())
+                k_out = k_st[:, :, :n4].index_select(-1, koidx.long())
             if "v_outlier_idx" in cents:
                 voidx = cents["v_outlier_idx"][i]
                 v_enc = zero_channels(v_enc, voidx)
-                v_out = v[:, :, :n4].index_select(-1, voidx.long())
+                v_out = v_st[:, :, :n4].index_select(-1, voidx.long())
             kc = _prefill_encode(k_enc, cents["key"][i], use_kernel)
             vc = _prefill_encode(v_enc, cents["value"][i], use_kernel)
             stacked_prefix_write(
                 cache, i, kc[:, :, :n4], vc[:, :, :n4],
-                k[:, :, n4:] if tail else None, v[:, :, n4:] if tail else None,
+                k_st[:, :, n4:] if tail else None, v_st[:, :, n4:] if tail else None,
                 k_out=k_out, v_out=v_out,
             )
             if distort_recent:
                 k_hat = pq_decode(kc, cents["key"][i], SUBSPACE_LAYOUT).to(k.dtype)
                 v_hat = pq_decode(vc, cents["value"][i], SUBSPACE_LAYOUT).to(v.dtype)
                 if "k_outlier_idx" in cents:
-                    k_hat = restore_channels(k_hat, k, koidx)
+                    k_hat = restore_channels(k_hat, k_st, koidx)
                 if "v_outlier_idx" in cents:
-                    v_hat = restore_channels(v_hat, v, voidx)
+                    v_hat = restore_channels(v_hat, v_st, voidx)
+                if Rk is not None:  # the reconstruction back to the original space
+                    k_hat, v_hat = _opq_rotate(k_hat, Rk.t()), _opq_rotate(v_hat, Rv.t())
                 k, v = k_hat, v_hat
         else:
             dense_write(cache, i, k, v)
@@ -391,7 +410,11 @@ def _masked_dense_decode(q, k, v):
     dense baseline is plain XLA with no TPU kernel of its own, so this is the
     library's decode attention, not a port of one. The cuDNN backend is left
     out: it builds a new graph for every cache length, which costs more host
-    time per step than the attention itself."""
+    time per step than the attention itself. A cache stored narrower than
+    the model (a bf16 cache under an f32 model) is widened to q's dtype, as
+    the reference's einsum promotes it."""
+    if k.dtype != q.dtype:
+        k, v = k.to(q.dtype), v.to(q.dtype)
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                       SDPBackend.MATH]):
         out = F.scaled_dot_product_attention(q[:, :, None], k, v, enable_gqa=True)
@@ -453,7 +476,6 @@ def decode_step(
     x = params["embed"][token][:, None, :]
     rope = _rope(cfg, int(pos), x.device)
     if mode != "dense":
-        _check_cents(cents)
         n_codes, r = cache["n_codes"], cache["r"]
         if r >= cache["key_residual"].shape[3]:
             raise ValueError("residual window is full: flush before the decode step")
@@ -471,12 +493,19 @@ def decode_step(
             attn = _masked_dense_decode(
                 q[:, :, 0], cache["k"][i, :, :, :p0 + 1], cache["v"][i, :, :, :p0 + 1])
         else:
+            # OPQ: the decode attention runs in rotated space and its output
+            # unrotates once before wo
+            Rk, Rv = _layer_rots(cents, i)
+            if Rk is not None:
+                q, k, v = _opq_rotate(q, Rk), _opq_rotate(k, Rk), _opq_rotate(v, Rv)
             cache["key_residual"][i, :, :, r] = k[:, :, 0]
             cache["value_residual"][i, :, :, r] = v[:, :, 0]
             if mode == "pq_kernel":
                 attn = _pq_kernel_attention_stacked(q[:, :, 0], cache, cents, i, n_codes, r + 1)
             else:
                 attn = _pq_ref_attention(q[:, :, 0], cache, cents, i, n_codes, r + 1)
+            if Rv is not None:
+                attn = _opq_rotate(attn, Rv.t())
         attn = attn.reshape(bs, 1, -1)
         x = x + F.linear(attn, lp["wo"]).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)

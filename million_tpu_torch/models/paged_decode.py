@@ -22,8 +22,13 @@ integer), the padded `n_valid` form of paged_prefill_seq, the rule that an
 admission chunk divides or is divided by the page size, GROUP_PAD, int8
 tables and the third output `co`. Codes are written token by token through
 the page table, so a flushed window or an admission chunk may straddle two
-pages. `lax.scan` over layers is a Python loop. Not in this slice (each
-raises NotImplementedError): `mesh` and OPQ rotations.
+pages. `lax.scan` over layers is a Python loop.
+
+OPQ (tables "Rk" / "Rv", the flat path's contract): pools and residual
+windows hold rotated k / v, the decode q and the admission history's q rotate
+by Rk, and each attention output over the rotated cache unrotates by Rv^T;
+prefill and in-chunk attention stay in the original space. Not in this slice
+(raises NotImplementedError): `mesh`.
 """
 
 from __future__ import annotations
@@ -46,10 +51,11 @@ from million_tpu_torch.models.llama import (
     SUBSPACE_LAYOUT,
     ModelConfig,
     Params,
-    _check_cents,
     _layer,
+    _layer_rots,
     _logits,
     _mlp,
+    _opq_rotate,
     _qkv,
     _rms_norm,
     _rope,
@@ -107,7 +113,6 @@ def paged_decode_step(
     slot whose window is full (seq_r >= Lt) BEFORE stepping it again; a slot
     stepped past a full window overwrites its last residual row."""
     _unsupported(mesh=mesh)
-    _check_cents(tables)
     S = tokens.shape[0]
     nh, nh_k, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / (dh**0.5)
@@ -128,6 +133,9 @@ def paged_decode_step(
         lp = _layer(params, i)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, rope)
+        Rk, Rv = _layer_rots(tables, i)
+        if Rk is not None:
+            q, k, v = _opq_rotate(q, Rk), _opq_rotate(k, Rk), _opq_rotate(v, Rv)
         # append the new token to the residual window at wr (per slot)
         state["key_residual"][i][slot, :, wr] = k[:, :, 0]
         state["value_residual"][i][slot, :, wr] = v[:, :, 0]
@@ -136,6 +144,8 @@ def paged_decode_step(
             qg, state["key_pool"], state["value_pool"], tables["key"], tables["value"], i,
             state["page_table"], n_codes, n_bound=n_bound, k_residual=state["key_residual"],
             v_residual=state["value_residual"], r=rows, **okw)
+        if Rv is not None:
+            attn = _opq_rotate(attn, Rv.t())
         attn = attn.reshape(S, 1, nh * dh).to(x.dtype)
         x = x + F.linear(attn, lp["wo"]).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
@@ -163,7 +173,6 @@ def flush_paged_slots(
     masked slots: the scheduler guarantees it, and grows the slot's pages
     first."""
     _unsupported(mesh=mesh)
-    _check_cents(tables)
     dev = state["key_pool"].device
     S, Lt = pcfg.max_seqs, pcfg.Lt
     mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
@@ -222,7 +231,6 @@ def paged_prefill_seq(
     prefix goes to pages, the ragged tail to the exact residual window.
     Returns (last-token logits (1, V) f32, the state, updated in place)."""
     _unsupported(mesh=mesh)
-    _check_cents(tables)
     n = input_ids.shape[1]
     n4 = (n // WORD) * WORD
     dev = input_ids.device
@@ -235,11 +243,14 @@ def paged_prefill_seq(
         lp = _layer(params, i)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, rope)
+        Rk, Rv = _layer_rots(tables, i)
+        k_st = k if Rk is None else _opq_rotate(k, Rk)
+        v_st = v if Rv is None else _opq_rotate(v, Rv)
         if n4:
-            _encode_and_write(state, tables, i, k, v, pages, offs, n4)
+            _encode_and_write(state, tables, i, k_st, v_st, pages, offs, n4)
         if n > n4:
-            state["key_residual"][i, seq_id, :, : n - n4] = k[0, :, n4:]
-            state["value_residual"][i, seq_id, :, : n - n4] = v[0, :, n4:]
+            state["key_residual"][i, seq_id, :, : n - n4] = k_st[0, :, n4:]
+            state["value_residual"][i, seq_id, :, : n - n4] = v_st[0, :, n4:]
         attn = causal_attention(q, k, v).transpose(1, 2).reshape(1, n, -1)
         x = x + F.linear(attn, lp["wo"]).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
@@ -270,7 +281,6 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
     attention against the QUANTIZED history [0, s0) read from the slots'
     pages, LSE-merged. Returns (logits (S, V) at each slot's last real
     token, the state)."""
-    _check_cents(tables)
     dev = state["key_pool"].device
     S, n_pad = prompts.shape
     sid = torch.tensor(list(seq_ids), device=dev)
@@ -298,6 +308,9 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
             q, k, v = _qkv(h, lp, cfg, rope)
             attn, lse_c = causal(q, k, v, scale)
+            Rk, Rv = _layer_rots(tables, i)
+            k_st = k if Rk is None else _opq_rotate(k, Rk)
+            v_st = v if Rv is None else _opq_rotate(v, Rv)
             if s0:
                 hokw = {}
                 if "key_outlier_pool" in state:
@@ -307,18 +320,20 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
                     hokw.update(voidx=tables["v_outlier_idx"][i],
                                 v_outliers=_gather_history(state["value_outlier_pool"], i, h_pages))
                 out_h, lse_h = history(
-                    q, _gather_history(state["key_pool"], i, h_pages),
+                    q if Rk is None else _opq_rotate(q, Rk), _gather_history(state["key_pool"], i, h_pages),
                     _gather_history(state["value_pool"], i, h_pages), tables["key"][i],
                     tables["value"][i], s0, scale, hist_block=hist_block, **hokw)
+                if Rv is not None:
+                    out_h = _opq_rotate(out_h, Rv.t())
                 attn, _ = merge_two_partials(attn, lse_c, out_h, lse_h)
             # the chunk's own codes land after its history was read
-            _encode_and_write(state, tables, i, k, v, pages, offs, nc)
+            _encode_and_write(state, tables, i, k_st, v_st, pages, offs, nc)
             if last_chunk:
                 # ragged real tail (up to 3 tokens) -> exact residual window; a
                 # 4-row slice is written, rows past the tail are masked by seq_r
                 start = torch.clamp(nv4 - s0, 0, nc - WORD)
                 ridx = (start[:, None] + torch.arange(WORD, device=dev)[None, :])[:, None, :, None]
-                for name, new in (("key_residual", k), ("value_residual", v)):
+                for name, new in (("key_residual", k_st), ("value_residual", v_st)):
                     tail = torch.gather(new, 2, ridx.expand(S, new.shape[1], WORD, new.shape[3]))
                     state[name][i, sid.long(), :, :WORD] = tail.to(state[name].dtype)
             attn = attn.to(x.dtype).transpose(1, 2).reshape(S, nc, -1)

@@ -18,3 +18,10 @@ def append_result(path: str | Path, record: Dict[str, Any]) -> None:
     p.parent.mkdir(parents=True, exist_ok=True)
     with p.open("a") as f:
         f.write(json.dumps(rec, default=str) + "\n")
+
+
+def read_results(path: str | Path):
+    p = Path(path)
+    if not p.exists():
+        return []
+    return [json.loads(line) for line in p.read_text().splitlines() if line.strip()]

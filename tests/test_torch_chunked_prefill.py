@@ -248,8 +248,6 @@ def test_contract_errors(rng, params):
         generate(tp, TCFG, ids, dense, None, mode="dense", prefill_chunk=16, device="cpu")
     with pytest.raises(NotImplementedError):
         tcp.chunked_prefill(tp, TCFG, ids, caches(gkw)[1], tcents, chunk=16, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tcp.chunked_prefill(tp, TCFG, ids, caches(gkw)[1], {**tcents, "Rk": None}, chunk=16)
 
 
 def test_counters_advance_once_per_chunk(rng, params, monkeypatch):

@@ -56,6 +56,31 @@ def test_sources_cover_the_quality_slice():
         assert rel in names, rel
 
 
+def test_sources_cover_the_pipeline_slice():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("million_tpu_torch/cli.py", "million_tpu_torch/__main__.py",
+                "million_tpu_torch/utils/config.py", "million_tpu_torch/utils/fvecs.py",
+                "million_tpu_torch/utils/profiling.py", "million_tpu_torch/models/hf_loader.py",
+                "million_tpu_torch/benchmarks/registry.py", "million_tpu_torch/benchmarks/speedtest.py",
+                "million_tpu_torch/benchmarks/longbench.py", "million_tpu_torch/benchmarks/lm_eval_adapter.py",
+                "million_tpu_torch/benchmarks/eval_rows.py"):
+        assert rel in names, rel
+
+
+def test_cli_imports_without_building():
+    """Importing the CLI and the harnesses builds nothing and imports none of
+    the optional packages (safetensors, transformers, datasets, lm_eval)."""
+    import subprocess
+    import sys
+
+    code = ("import sys; import million_tpu_torch.cli, million_tpu_torch.benchmarks.eval_rows, "
+            "million_tpu_torch.models.hf_loader, million_tpu_torch.utils.profiling; "
+            "bad = [m for m in ('jax', 'million_tpu', 'safetensors', 'transformers', 'datasets', 'lm_eval', "
+            "'triton') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr[-2000:]
+
+
 BANNED_IN_CUDA = ("torch/", "ATen", "cublas", "cudnn", "cutlass")
 
 

@@ -234,8 +234,6 @@ def test_later_slices_raise(rng, params):
     hidden = tl.prefill(tp, TCFG, ids, caches(gkw)[1], tcents, distort_recent=True, return_hidden=True)
     assert hidden.shape == (BS, 4, TCFG.hidden_size)
     with pytest.raises(NotImplementedError):
-        tl.prefill(tp, TCFG, ids, tc, {**tcents, "Rk": None})
-    with pytest.raises(NotImplementedError):
         PQCacheConfig(bs=1, nh_k=2, d=16, M=8, C=512)
 
 

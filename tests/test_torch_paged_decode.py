@@ -354,8 +354,6 @@ def test_unported_routes_raise(rng, params):
     with pytest.raises(NotImplementedError):
         tpd.paged_decode_step(tp, TCFG, tcfg, tok, None, tst, tt, mesh=object())
     with pytest.raises(NotImplementedError):
-        tpd.paged_decode_step(tp, TCFG, tcfg, tok, None, tst, {**tt, "Rk": None})
-    with pytest.raises(NotImplementedError):
         tpd.flush_paged_slots(tcfg, tst, tt, torch.tensor([True, False]), mesh=object())
     with pytest.raises(NotImplementedError):
         tpd.paged_admit_chunked(tp, TCFG, tcfg, 0, np.arange(8), tst, tt, chunk=4, mesh=object())

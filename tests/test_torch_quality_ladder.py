@@ -8,8 +8,8 @@ repository's markdown, and over its 2 x 511 positions the k-means seed
 can move Δppl across 0 (on this tree `python -m
 million_tpu.benchmarks.quality_ladder --fast --windows 2` itself gives a
 negative Δppl). The envelope's upper bounds are what a broken encode or
-codebook would cross. Rungs the port cannot run yet raise
-NotImplementedError."""
+codebook would cross. Rungs the port cannot run yet (nbits > 8, wide codes)
+raise NotImplementedError; the OPQ rung runs (tests/test_torch_opq.py)."""
 
 import json
 
@@ -60,8 +60,8 @@ def test_dppl_nbits8_in_envelope(one_thread):
     assert row["train_s"] > 0 and row["eval_s"] > 0
 
 
-@pytest.mark.parametrize("rung", [dict(M_k=16, nbits_k=9), dict(M_k=16, nbits_k=8, M_v=8, nbits_v=10),
-                                  dict(M_k=16, nbits_k=8, opq=True)], ids=["nbits9", "nbits_v10", "opq"])
+@pytest.mark.parametrize("rung", [dict(M_k=16, nbits_k=9), dict(M_k=16, nbits_k=8, M_v=8, nbits_v=10)],
+                         ids=["nbits9", "nbits_v10"])
 def test_later_rungs_raise(tiny_lm, rung):
     params, cfg = tiny_lm
     kv = np.zeros((cfg.num_layers, 300, cfg.head_dim), np.float16)
