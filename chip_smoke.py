@@ -2,8 +2,11 @@
 """Smoke run of million_tpu_torch on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                 # the whole run
-    python3 chip_smoke.py --kernels-only  # phases 1-3 and the odd exact channels, no result line
+    python3 chip_smoke.py --kernels-only  # phases 1-4 (and fault C.9's kernels), no result line
     python3 chip_smoke.py --pipeline-only # the build, then the pipeline phase alone, no result line
+    python3 chip_smoke.py --c9-only       # the build, then fault C.9's phases alone, no result line
+    python3 chip_smoke.py --sessions-only # the build, then the long-context, mixed-serving and
+                                          # checkpoint phases alone, no result line
 
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
@@ -49,7 +52,13 @@ result line:
      a bf16 model with 32 exact channels a side (a geometry the tensor-core
      version of pq_chunk_attention is not built for) takes its f32 version,
      alone and in a chunked prefill and a paged admission of two layers of
-     llama-3.2-3b, each against the plain route;
+     llama-3.2-3b, each against the plain route; and fault C.9, subspaces
+     wider than 8: B1, B4, B7 and B3 (its route) at d_m = 16 (M = 8: C = 256
+     pure PQ, and C = 128 with 16 + 16 exact channels) against their plain
+     versions at the main paths' shapes, timed beside their bounds, then the
+     generic width d_m = 32 the same way, then every geometry of the target
+     set (d 64 / 128, d_m 1 / 2 ... 128, C 128 / 256, 0 / 16 exact channels)
+     at a small shape;
   5. the main paths, at the full width of llama-3.2-3b (28 layers, random
      weights from a seed, bench.py's synthetic codebooks), 4 requests of
      32,000-token prompts, in mode "pq_kernel" for dm2 and dm4_outlier_c128:
@@ -76,6 +85,23 @@ result line:
      a test-tiny generate, flat and chunked, and a test-tiny Scheduler with a
      forced preemption, on the card against the CPU; dense-mode TTFT and TPOT
      beside;
+     - fault C.9's paths at M = 8 (d_m = 16, C = 256): a flat generate (bs 1,
+       a 4,096-token prompt, 160 new tokens, F = 16 flushes) with four
+       teacher-forced steps against the plain oracle, a chunked generate (2
+       chunks of 2,048) and a Scheduler (two 4,000-token requests), each with
+       its launch counts;
+     - long context (benchmarks/long_context_bench.py): decode TPOT p10 / p50
+       / p90 at 131,072 tokens, bs 1, over 5 chains of 12 steps, for the
+       dense bf16 cache (15.0 GB), dm2 and dm4_outlier_c128, and dm2's
+       chunked-prefill TTFT of 130,560 tokens, peak memory of each;
+     - mixed-length serving (serving_bench's default mode): 16 requests from
+       4 prompt buckets of 128-1,024 tokens, 64 new tokens, 8 slots of
+       512-token pages, dm2 and dm4_outlier_c128, its JSON row;
+     - session checkpoints (runtime/checkpoint.py): two 8,192-token requests
+       saved after admission and 8 steps (a window flush pending), dropped,
+       loaded and finished, greedy and sampled, token streams against an
+       uninterrupted run's, with the snapshot's bytes and the save and load
+       walls;
      - the quality path, on the pinned lm_l_v1 (d=64, 6 layers, 8 / 4 heads,
        f32) over a held-out byte stream that is the same on every machine
        (its sha256 printed): K/V sampled from 16 dense windows of 1,024
@@ -103,7 +129,9 @@ result line:
        (final inertias within 1e-4); one teacher-forced decode with the
        trained dm2 tables and one with the rotations, kernel against the
        plain oracle;
-  6. a JSON line of the kernels, then the card line, then the result line.
+  6. a JSON line of the kernels (with [dm16] entries: fault C.9's d_m = 16
+     builds, timed in its kernel phase and launched by its paths), then the
+     card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
 
@@ -181,6 +209,21 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "million_tpu/models/chunked_prefill.py:95 (_causal_partial, plain jnp)"),
 }
 PATH_GEOMETRIES = ("dm2", "dm4_outlier_c128")
+# fault C.9: subspaces of 16 dims (M = 8 at d = 128) through the kernels' d_m = 16 builds, at the
+# main paths' shapes; and one generic width (d_m = 32: the decode passes' value pass in two slices
+# of 16, the generic encode kernel)
+C9_GEOMETRIES = {
+    "dm16": dict(M=8, C=256, O=0),
+    "dm16_outlier_c128": dict(M=8, C=128, O=16),
+}
+C9_GENERIC = {"dm32": dict(M=4, C=256, O=0)}
+ALL_GEOMETRIES = {**GEOMETRIES, **C9_GEOMETRIES, **C9_GENERIC}
+C9_PROMPT, C9_NEW_TOKENS = 4096, 160  # the d_m = 16 flat generate: bs = 1, window flushes
+# the target-set sweep's B3 limits at its short history (1,000 tokens, so a weight is larger than at
+# the phases' 28,672): those of the repo's small-shape kernel tests, tests/test_torch_chunk_attention.py
+C9_SWEEP_B3_TOL = {"f32": 1e-4, "bf16": 2e-3}
+LC_CTX, LC_ITERS, LC_REPEATS = 131072, 12, 5  # the long-context phase: 128K tokens, 5 chains of 12 steps
+CKPT_PROMPT, CKPT_NEW_TOKENS = 8192, 144  # the checkpoint phase: a flush pending at the save
 # the quality path: quality_ladder.FROZEN_* (lm_l_v1 on the frozen held-out stream, its four rungs);
 # the bars on Δppl / dense ppl, from the TPU ladder's numbers on other text (docs/PERF.md:557-567);
 # d_m=8 (+7.2 % on the TPU) takes the C=128 bar
@@ -258,7 +301,7 @@ def synthetic_cents(L: int, d: int, geom: str, seed: int = 0, O=None):
     (O + O where O is given)."""
     import numpy as np
 
-    g = GEOMETRIES[geom]
+    g = ALL_GEOMETRIES[geom]
     M, C, O = g["M"], g["C"], g["O"] if O is None else O
     rng = np.random.default_rng(seed)
     ck = rng.standard_normal((L, M, C, d // M)).astype(np.float32)
@@ -276,8 +319,9 @@ def synthetic_cents(L: int, d: int, geom: str, seed: int = 0, O=None):
     return cents
 
 
-def kernel_phase(dev):
-    """Kernel vs plain version at the main-path shape, per geometry."""
+def kernel_phase(dev, geoms=GEOMETRIES, single=("dm4_outlier_c128",)):
+    """Kernel vs plain version at the main-path shape, per geometry (and the
+    single-layer entry at the geometries of `single`)."""
     import torch
     import torch.nn.functional as F
 
@@ -287,9 +331,9 @@ def kernel_phase(dev):
     nh_k, G, d, L, layer = 8, 3, 128, 2, 1
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
-    cases = [(g, "stacked") for g in GEOMETRIES] + [("dm4_outlier_c128", "single-layer")]
+    cases = [(g, "stacked") for g in geoms] + [(g, "single-layer") for g in single if g in geoms]
     for geom, entry in cases:
-        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+        M, C, O = (geoms[geom][k] for k in ("M", "C", "O"))
         cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=2), device=dev)
         q = torch.randn((BS, nh_k, G, d), generator=gen, device=dev) / d**0.5
         kc = torch.randint(0, C, (L, BS, nh_k, N_MAX, M), generator=gen, device=dev, dtype=torch.uint8)
@@ -332,7 +376,7 @@ def kernel_phase(dev):
         nbytes = (K.decode_bytes(BS, nh_k, N_CODES, M, M, O, O)
                   + 2 * BS * nh_k * RESIDUAL_ROWS * d * 2  # live residual rows, bf16
                   + 2 * C * d * 4 + 2 * q.numel() * 4 + BS * nh_k * G * 4)
-        flops = K.decode_flops(BS, nh_k, G, d, N_CODES + RESIDUAL_ROWS, O)
+        flops = K.decode_flops(BS, nh_k, G, d, N_CODES + RESIDUAL_ROWS, O, OV=O, M=M, M_v=M, C=C, C_v=C)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
         # dense bf16 attention over the same length: a yardstick, not the same function
         qd = torch.randn((BS, nh_k * G, 1, d), generator=gen, device=dev).bfloat16()
@@ -362,7 +406,7 @@ def bound_of(nbytes: int, ops: int, ops_per_s: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def encode_phase(dev):
+def encode_phase(dev, geoms=PATH_GEOMETRIES):
     """pq_encode vs its plain version at the prefill, chunk, admission and
     flush shapes."""
     import torch
@@ -395,8 +439,8 @@ def encode_phase(dev):
             raise RuntimeError(f"pq_encode disagrees with its plain version ({what})")
         return 1.0 - agree
 
-    for geom in PATH_GEOMETRIES:
-        M, C = GEOMETRIES[geom]["M"], GEOMETRIES[geom]["C"]
+    for geom in geoms:
+        M, C = ALL_GEOMETRIES[geom]["M"], ALL_GEOMETRIES[geom]["C"]
         cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=5), device=dev)["key"]
         # prefill shape: the model's (bs, heads, n, d) view of a (bs, n, heads, d) projection
         x = torch.randn((BS, PROMPT, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
@@ -473,7 +517,7 @@ def encode_phase(dev):
     return rows
 
 
-def chunk_phase(dev):
+def chunk_phase(dev, geoms=GEOMETRIES, f32_geoms=PATH_GEOMETRIES):
     """pq_chunk_attention vs its plain version at the two shapes the paths give
     it: a 4096-token chunk over the longest history of the chunked path (both
     precisions on the path geometries, bf16 on dm4_outlier), and the last
@@ -491,7 +535,7 @@ def chunk_phase(dev):
     rows = {}
 
     def check(geom, shape, bs, q, kc, vc, cents, n_prev, okw, precisions):
-        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+        M, C, O = (geoms[geom][k] for k in ("M", "C", "O"))
         qr = K.group_rows(q, nh_k, 1.0 / d**0.5).contiguous()
         QR = qr.shape[2]
         nbytes = K.chunk_bytes(bs, nh_k, QR, d, n_prev, M, M, O, O) + 2 * C * d * 4
@@ -550,8 +594,8 @@ def chunk_phase(dev):
         del exact
 
     S, nph = SERVE_SLOTS, -(-N_PREV_ADMIT // PAGE_SIZE)
-    for geom in GEOMETRIES:
-        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+    for geom in geoms:
+        M, C, O = (geoms[geom][k] for k in ("M", "C", "O"))
         cents = cents_from_numpy(synthetic_cents(1, d, geom, seed=7), device=dev)
         okidx = dict(koidx=cents["k_outlier_idx"][0], voidx=cents["v_outlier_idx"][0]) if O else {}
         # the chunked path: one 4096-token chunk of bs sequences over a flat arena
@@ -563,7 +607,7 @@ def chunk_phase(dev):
             okw.update(k_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16(),
                        v_outliers=torch.randn((BS, nh_k, N_MAX, O), generator=gen, device=dev).bfloat16())
         check(geom, "chunk", BS, q, kc, vc, cents, N_PREV, okw,
-              ("f32", "bf16") if geom in PATH_GEOMETRIES else ("bf16",))
+              ("f32", "bf16") if geom in f32_geoms else ("bf16",))
         del q, kc, vc, okw
         torch.cuda.empty_cache()
         # serving admission: the last 512-token chunk of six slots over their history pages,
@@ -588,7 +632,7 @@ def chunk_phase(dev):
     return rows
 
 
-def paged_phase(dev):
+def paged_phase(dev, geoms=GEOMETRIES):
     """pq_paged_attention vs its plain version at the serving shape: ragged
     lengths with -1 table tails and an empty slot, full slots (timed), the
     single-layer entry and the pages-per-block mode."""
@@ -607,8 +651,8 @@ def paged_phase(dev):
     full = [SERVE_PROMPT] * S
     n_bound = 16 * ps  # the scheduler's bound before the slots grow a 17th page
     rows = {}
-    for geom in GEOMETRIES:
-        M, C, O = (GEOMETRIES[geom][k] for k in ("M", "C", "O"))
+    for geom in geoms:
+        M, C, O = (geoms[geom][k] for k in ("M", "C", "O"))
         cents = cents_from_numpy(synthetic_cents(L, d, geom, seed=9), device=dev)
         q = torch.randn((S, nh_k, G, d), generator=gen, device=dev) / d**0.5
         kp = torch.randint(0, C, (L, n_pages + 1, nh_k, ps, M), generator=gen, device=dev, dtype=torch.uint8)
@@ -681,7 +725,7 @@ def paged_phase(dev):
         nbytes = (P.paged_bytes(full, nh_k, M, M, O, O)
                   + 2 * S * nh_k * RESIDUAL_ROWS * d * 2  # live residual rows, bf16
                   + 2 * C * d * 4 + 2 * q.numel() * 4 + S * nh_k * G * 4 + S * pps * 4 + 2 * S * 4)
-        flops = P.paged_flops([n + RESIDUAL_ROWS for n in full], nh_k, G, d, O)
+        flops = P.paged_flops([n + RESIDUAL_ROWS for n in full], nh_k, G, d, O, OV=O, M=M, M_v=M, C=C, C_v=C)
         bound_ms, bound_by = bound_of(nbytes, flops, F32_OPS_PER_S)
         # dense bf16 attention over the same lengths: a yardstick, not the same function
         qd = torch.randn((S, nh_k * G, 1, d), generator=gen, device=dev).bfloat16()
@@ -1411,6 +1455,382 @@ def pipeline_path(dev, launches, card):
     log(f"[pipeline] phase wall {time.perf_counter() - t_phase:.2f} s on {card}")
 
 
+def c9_sweep(dev):
+    """Every geometry of fault C.9's target set at a small shape, kernel (the
+    route each wrapper picks) against its plain version: d in {64, 128}, every
+    M that divides d (d_m 2 ... d for the decode kernels and B3, 1 ... d for
+    the encode), C in {128, 256}, 0 or 16 exact channels a side. Integer-
+    valued encode inputs, so the codes must be bit-equal."""
+    import torch
+
+    from million_tpu_torch.ops import pq_attention_kernel as K
+    from million_tpu_torch.ops import pq_chunk_attention_kernel as B3
+    from million_tpu_torch.ops import pq_encode_kernel as E
+    from million_tpu_torch.ops import pq_paged_attention_kernel as P
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nh_k, G, Lt, N, n_codes, ps = 2, 3, 128, 1024, 1000, 256
+    worst = {"B1": 0.0, "B4": 0.0, "B3": 0.0}
+    routes = {"B1/B4": set(), "B7": set(), "B3": set()}
+    count = 0
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def codes(C, *shape):
+        return torch.randint(0, C, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    def err(got, want):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    for d in (64, 128):
+        for dm in (1, 2, 4, 8, 16, 32, 64, 128):
+            if dm > d:
+                continue
+            M = d // dm
+            for C in (128, 256):
+                # B7: integer-valued x and codebooks, strided ("fast") and contiguous ("exact")
+                xi = torch.randint(-4, 5, (2, 512, d), generator=gen, device=dev).float()
+                ci = torch.randint(-4, 5, (M, C, dm), generator=gen, device=dev).float()
+                for layout, precision, x in (("strided", "fast", xi.bfloat16()), ("contiguous", "exact", xi)):
+                    same = bool((E.pq_encode_fused(x, ci, layout, precision)
+                                 == E.pq_encode_fused_plain(x[None], ci[None], layout, precision)[0]).all())
+                    if not same:
+                        raise RuntimeError(f"C.9 sweep: pq_encode d={d} d_m={dm} C={C} {layout} differs")
+                routes["B7"].add(f"d_m={dm}: {E.encode_route(dm, C)}")
+                if dm == 1:
+                    continue
+                for O in (0, 16):
+                    count += 1
+                    cents = [randn(1, M, C, dm) for _ in range(2)]
+                    idx = [torch.randperm(d, generator=torch.Generator().manual_seed(s))[:O].sort().values
+                           for s in (d + dm + C, d + dm + C + 1)]
+                    for c, ix in zip(cents, idx):  # exact channels have zero centroid components
+                        for ch in ix.tolist():
+                            c[0, ch % M, :, ch // M] = 0.0
+                    ocw = dict(k_oidx=idx[0][None].to(torch.int32).to(dev),
+                               v_oidx=idx[1][None].to(torch.int32).to(dev)) if O else {}
+                    routes["B1/B4"].add(K.decode_route(d, M, M, C, C, G, O, O).name)
+                    # B1: one sequence over a flat arena, a bf16 residual window with 7 live rows
+                    q = randn(1, nh_k, G, d) / d**0.5
+                    kc, vc = codes(C, 1, 1, nh_k, N, M), codes(C, 1, 1, nh_k, N, M)
+                    fkw = dict(ocw, k_residual=randn(1, 1, nh_k, Lt, d, dtype=torch.bfloat16),
+                               v_residual=randn(1, 1, nh_k, Lt, d, dtype=torch.bfloat16), r=7)
+                    if O:
+                        fkw.update(k_outliers=randn(1, 1, nh_k, N, O, dtype=torch.bfloat16),
+                                   v_outliers=randn(1, 1, nh_k, N, O, dtype=torch.bfloat16))
+                    a = (q, kc, vc, cents[0], cents[1], 0, n_codes)
+                    worst["B1"] = max(worst["B1"], err(K.pq_codes_attention_stacked(*a, **fkw),
+                                                       K.pq_codes_attention_plain(*a, **fkw, n_sm=n_sm)))
+                    # B4: two slots of 256-token pages, ragged lengths
+                    qp = randn(2, nh_k, G, d) / d**0.5
+                    kp, vp = codes(C, 1, 9, nh_k, ps, M), codes(C, 1, 9, nh_k, ps, M)
+                    table = torch.randperm(8, generator=torch.Generator().manual_seed(dm)).reshape(2, 4)
+                    table[1, 2:] = -1
+                    pkw = dict(ocw, k_residual=randn(1, 2, nh_k, Lt, d, dtype=torch.bfloat16),
+                               v_residual=randn(1, 2, nh_k, Lt, d, dtype=torch.bfloat16),
+                               r=torch.tensor([7, 0], dtype=torch.int32, device=dev))
+                    if O:
+                        pkw.update(k_outliers=randn(1, 9, nh_k, ps, O, dtype=torch.bfloat16),
+                                   v_outliers=randn(1, 9, nh_k, ps, O, dtype=torch.bfloat16))
+                    a = (qp, kp, vp, cents[0], cents[1], 0, table.to(torch.int32).to(dev),
+                         torch.tensor([1000, 300], dtype=torch.int32, device=dev))
+                    worst["B4"] = max(worst["B4"], err(P.pq_paged_attention_stacked(*a, **pkw),
+                                                       P.pq_paged_attention_plain(*a, **pkw, n_sm=n_sm)))
+                    # B3: a 64-token chunk of a bf16 model over the flat arena, B3's route
+                    qc = randn(1, nh_k * G, 64, d, dtype=torch.bfloat16)
+                    hkw = {}
+                    if O:
+                        hkw = dict(koidx=ocw["k_oidx"][0], voidx=ocw["v_oidx"][0], k_outliers=fkw["k_outliers"][0],
+                                   v_outliers=fkw["v_outliers"][0])
+                    pr = B3.history_precision(qc, vc[0], hkw.get("k_outliers"), hkw.get("v_outliers"), kc[0])
+                    routes["B3"].add(f"d_m={dm} O={O}: {pr}")
+                    qr = B3.group_rows(qc, nh_k, 1.0 / d**0.5).contiguous()
+                    a = (qr, kc[0], vc[0], cents[0][0], cents[1][0], n_codes)
+                    got = B3.pq_chunk_attention(*a, precision=pr, **hkw)
+                    want = B3.pq_chunk_attention_plain(*a, precision=pr, **hkw)
+                    e3 = (float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+                    if max(e3) > C9_SWEEP_B3_TOL[pr]:
+                        raise RuntimeError(f"C.9 sweep: pq_chunk_attention d={d} d_m={dm} C={C} O={O} {pr}: {e3}")
+                    worst["B3"] = max(worst["B3"], max(e3))
+                    if max(worst["B1"], worst["B4"]) > KERNEL_TOL:
+                        raise RuntimeError(f"C.9 sweep: decode kernels d={d} d_m={dm} C={C} O={O}: {worst}")
+    torch.cuda.synchronize()
+    log(f"[c9] target set: {count} decode geometries (d 64 / 128, d_m 2-128, C 128 / 256, 0 / 16 exact), "
+        f"every encode width 1-128 at C 128 / 256: B1 max err {worst['B1']:.3g}, B4 {worst['B4']:.3g} "
+        f"(tol {KERNEL_TOL}), B3 {worst['B3']:.3g} (tol {C9_SWEEP_B3_TOL}), B7 bit-equal on integer inputs; "
+        f"decode builds {sorted(routes['B1/B4'])}; encode {sorted(routes['B7'])}; B3 {sorted(routes['B3'])}")
+
+
+def c9_kernels(dev):
+    """Fault C.9 repaired, kernels: B1, B4, B7 and B3 (its route) at d_m = 16
+    (M = 8 at d = 128, pure PQ at C = 256 and 16 + 16 exact channels at C =
+    128) against their plain versions at the main paths' shapes, timed beside
+    their bounds; then the generic width (d_m = 32) the same way; then the
+    whole target set at a small shape. Returns the d_m = 16 rows of each
+    kernel, as the kernels line takes them."""
+    from million_tpu_torch.ops import pq_attention_kernel as K
+    from million_tpu_torch.ops import pq_chunk_attention_kernel as B3
+    from million_tpu_torch.ops import pq_encode_kernel as E
+
+    for name, g in {**C9_GEOMETRIES, **C9_GENERIC}.items():
+        route = K.decode_route(128, g["M"], g["M"], g["C"], g["C"], 3, g["O"], g["O"])
+        log(f"[c9] {name} (M={g['M']}, d_m={128 // g['M']}, C={g['C']}, {g['O']} + {g['O']} exact): "
+            f"decode passes {route.name}, encode {E.encode_route(128 // g['M'], g['C'])}, B3 "
+            f"{'bf16' if B3.mma_geometry(128, g['M'], g['O'], g['O'], g['M']) else 'f32'} for a bf16 model")
+    rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev, C9_GEOMETRIES, ("dm16",)).items()
+                                    if e == "stacked"},
+            "pq_paged_attention": paged_phase(dev, C9_GEOMETRIES),
+            "pq_encode": encode_phase(dev, tuple(C9_GEOMETRIES)),
+            "pq_chunk_attention": {g: r for (g, shape, pr), r in chunk_phase(dev, C9_GEOMETRIES, ()).items()
+                                   if shape == "chunk"}}
+    log("[c9] the generic width:")
+    kernel_phase(dev, C9_GENERIC, ())
+    paged_phase(dev, C9_GENERIC)
+    encode_phase(dev, tuple(C9_GENERIC))
+    chunk_phase(dev, C9_GENERIC, ())
+    c9_sweep(dev)
+    return rows
+
+
+def c9_paths(dev, cfg, params, launches):
+    """Fault C.9 repaired, paths: llama-3.2-3b at full width with M = 8
+    (d_m = 16, C = 256) through generate() (flat: bs 1, a 4,096-token prompt,
+    160 new tokens with F = 16 sub-window flushes, then four teacher-forced
+    steps against the plain oracle, one just after a flush; chunked: the same
+    prompt in chunks of 2,048, 17 new tokens) and a Scheduler (two 4,000-token
+    requests, one group admission, 40 new tokens each). Each drive sets the
+    launch counts to 0 just before and reads them just after, into
+    `launches[kernel][path]`."""
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+    from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.models import llama
+    from million_tpu_torch.runtime.generate import generate
+    from million_tpu_torch.runtime.scheduler import Request, Scheduler
+
+    wrappers = path_wrappers()
+    L, d, nh_k = cfg.num_layers, cfg.head_dim, cfg.num_kv_heads
+    g = C9_GEOMETRIES["dm16"]
+    cents = cents_from_numpy(synthetic_cents(L, d, "dm16", seed=21), device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, C9_PROMPT), generator=torch.Generator(device=dev).manual_seed(22),
+                        device=dev)
+    pqc = PQCacheConfig(bs=1, nh_k=nh_k, d=d, M=g["M"], C=g["C"], Lt=128, N_max=2 * C9_PROMPT)
+
+    def drive(path, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        for k, w in wrappers.items():
+            launches[k][path] = w.launches
+        return out
+
+    cache = init_state(pqc, L, device=dev)
+    res, cache = drive("flat", lambda: generate(params, cfg, ids, cache, cents, mode="pq_kernel", device=dev,
+                                                max_new_tokens=C9_NEW_TOKENS, flush_chunk=FLUSH))
+    got = {k: launches[k]["flat"] for k in wrappers}
+    want = {"pq_decode_attention": L * (C9_NEW_TOKENS - 1), "pq_chunk_attention": 0,
+            "pq_encode": 2 * L + 2 * res.n_flushes, "pq_paged_attention": 0, "causal_attention": 0}
+    in_vocab = bool(((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all())
+    log(f"[c9] dm16 flat generate (bs 1, {C9_PROMPT}-token prompt): TTFT {res.ttft_s:.3f} s, TPOT "
+        f"{res.tpot_s * 1e3:.3f} ms, flushes {res.n_flushes}, launches {got} (want {want})")
+    if got != want or res.n_flushes < 1 or res.tokens.shape != (1, C9_NEW_TOKENS) or not in_vocab:
+        raise RuntimeError("C.9: the d_m = 16 flat generate check failed")
+    tok = torch.from_numpy(res.tokens[:, -1]).to(dev)
+    pos, gaps, after_flush = C9_PROMPT + C9_NEW_TOKENS - 1, [], []
+    for _ in range(4):
+        flushed = cache["r"] >= cache["key_residual"].shape[3]
+        if flushed:
+            llama.flush_windows(cache, cents, n=FLUSH)
+        ref = llama.decode_step(params, cfg, tok, pos, cache, cents, mode="pq")
+        cache["r"] -= 1  # the kernel step rewrites the same residual row
+        ker = llama.decode_step(params, cfg, tok, pos, cache, cents, mode="pq_kernel")
+        if not torch.isfinite(ker).all():
+            raise RuntimeError("C.9: non-finite logits")
+        gaps.append(float((ker - ref).abs().max()))
+        after_flush.append(flushed)
+        tok, pos = ker.argmax(-1), pos + 1
+    log(f"[c9] dm16 teacher-forced: max |logit(pq_kernel) - logit(pq)| per step {['%.4g' % x for x in gaps]} "
+        f"(after flush: {after_flush}; tol {LOGIT_TOL})")
+    if max(gaps) > LOGIT_TOL or not any(after_flush):
+        raise RuntimeError("C.9: the d_m = 16 teacher-forced check failed")
+    del cache
+    cache = init_state(pqc, L, device=dev)
+    res, cache = drive("chunked", lambda: generate(params, cfg, ids, cache, cents, mode="pq_kernel", device=dev,
+                                                   max_new_tokens=CHUNK_NEW_TOKENS, prefill_chunk=2048))
+    got = {k: launches[k]["chunked"] for k in wrappers}
+    want = {"pq_decode_attention": L * (CHUNK_NEW_TOKENS - 1), "pq_chunk_attention": L,
+            "pq_encode": 4 * L, "pq_paged_attention": 0, "causal_attention": 2 * L}
+    log(f"[c9] dm16 chunked generate (2 chunks of 2,048): TTFT {res.ttft_s:.3f} s, launches {got} (want {want})")
+    if got != want or (cache["n_codes"], cache["r"]) != (C9_PROMPT, CHUNK_NEW_TOKENS - 1):
+        raise RuntimeError("C.9: the d_m = 16 chunked generate check failed")
+    del cache
+    torch.cuda.empty_cache()
+    pcfg = PagedPQCacheConfig(num_layers=L, nh_k=nh_k, d=d, M=g["M"], C=g["C"], Lt=128, page_size=2048,
+                              n_pages=8, max_seqs=2, pages_per_seq=4, dtype=cfg.dtype)
+    sched = Scheduler(params, cfg, pcfg, cents, device=dev)
+    rng = np.random.default_rng(24)
+    for rid in range(2):
+        sched.submit(Request(rid, rng.integers(0, cfg.vocab_size, 4000), 40))
+    done = drive("serving", lambda: sched.run_to_completion())
+    got = {k: launches[k]["serving"] for k in wrappers}
+    ok = (len(done) == 2 and all(len(f.tokens) == 40 for f in done)
+          and got["pq_paged_attention"] == L * sched.ticks_dispatched and got["pq_chunk_attention"] > 0
+          and got["pq_encode"] > 0)
+    log(f"[c9] dm16 serving (2 x 4,000-token requests, 40 new tokens): {sched.ticks_dispatched} ticks, "
+        f"launches {got}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("C.9: the d_m = 16 serving check failed")
+    del sched
+    torch.cuda.empty_cache()
+
+
+def long_context_phase(dev, cfg, params, launches, card):
+    """long_context_bench at 131,072 tokens, bs 1, llama-3.2-3b at full width:
+    decode TPOT (p10 / p50 / p90 of 5 chains of 12 steps, CUDA events) for
+    the dense bf16 cache, dm2 and dm4_outlier_c128, each cache freed before
+    the next; dm2 also times a chunked prefill of 130,560 tokens (chunks of
+    4,096). Peak memory of each. The PQ runs' launches go to `launches`."""
+    from million_tpu_torch.benchmarks import long_context_bench as LCB
+
+    wrappers = path_wrappers()
+    rows = {}
+    for geom in ("dense",) + PATH_GEOMETRIES:
+        for w in wrappers.values():
+            w.launches = 0
+        row = LCB.run_geometry(params, cfg, geom, ctx=LC_CTX, bs=1, iters=LC_ITERS, repeats=LC_REPEATS,
+                               ttft_chunk=CHUNK if geom == "dm2" else 0, device=dev)
+        got = {k: w.launches for k, w in wrappers.items()}
+        steps = 2 + LC_REPEATS * LC_ITERS  # warm-up and the timed chains
+        ok = (row["tpot_ms_p10"] <= row["tpot_ms_p50"] <= row["tpot_ms_p90"] and row["tpot_ms_p10"] > 0
+              and (geom == "dense" or got["pq_decode_attention"] == cfg.num_layers * steps))
+        if geom != "dense":
+            for k in wrappers:
+                launches[k][geom]["long_context"] = got[k]
+        rows[geom] = row
+        log(f"[long] {json.dumps({k: v for k, v in row.items() if k != 'tpot_ms_samples'})} "
+            f"samples {['%.3f' % x for x in row['tpot_ms_samples']]} launches {got}; {card}; "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"long-context check failed for {geom}")
+    return rows
+
+
+def mixed_phase(dev, cfg, params, launches, card):
+    """serving_bench's mixed-length mode with the reference's defaults: 16
+    requests from 4 prompt buckets of 128-1,024 tokens, 64 new tokens each, 8
+    slots of 512-token pages (32 a slot), dm2 and dm4_outlier_c128; a warm-up
+    scheduler, then a timed one ticked explicitly."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.benchmarks import serving_bench as SB
+    from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.runtime.scheduler import Scheduler
+
+    wrappers = path_wrappers()
+    args = argparse.Namespace(requests=16, min_prompt=128, max_prompt=1024, max_new=64, seed=0,
+                              preset="llama-3.2-3b")
+    for geom in PATH_GEOMETRIES:
+        cents_np, M, C, O = SB.synthetic_cents(cfg.num_layers, cfg.head_dim, geom, np.random.default_rng(0))
+        tables = cents_from_numpy(cents_np, device=dev)
+        pcfg = PagedPQCacheConfig(num_layers=cfg.num_layers, nh_k=cfg.num_kv_heads, d=cfg.head_dim, M=M, C=C,
+                                  Lt=128, page_size=512, n_pages=8 * 32, max_seqs=8, pages_per_seq=32,
+                                  dtype=cfg.dtype, OK=O, OV=O)
+        for w in wrappers.values():
+            w.launches = 0
+        row, sched = SB.mixed(args, cfg, pcfg, lambda: Scheduler(params, cfg, pcfg, tables, device=dev), card)
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k in wrappers:
+            launches[k][geom]["mixed"] = got[k]
+        toks_ok = all(len(f.tokens) == args.max_new and ((0 <= f.tokens) & (f.tokens < cfg.vocab_size)).all()
+                      for f in sched.finished)
+        ok = (len(sched.finished) == args.requests and toks_ok and row["peak_pages_used"] <= row["pool_pages"]
+              and got["pq_paged_attention"] > 0 and got["pq_encode"] > 0)
+        log(f"[mixed] {geom}: the row above; launches {got} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"mixed serving check failed for {geom}")
+        del sched
+        torch.cuda.empty_cache()
+
+
+def checkpoint_phase(dev, cfg, params, launches, card):
+    """Session save and resume at full width (dm2): two slots of 8,192-token
+    prompts in 2048-token pages, 144 new tokens each, 16 ticks chained a
+    step. A session is saved after admission and 8 steps (128 ticks: every
+    window full, its flush pending), the scheduler dropped, the session
+    loaded and run to the end; its tokens must equal an uninterrupted run's,
+    greedy and sampled (temperature 0.8, top-k 20, seed 7)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.runtime.checkpoint import load_session, save_session
+    from million_tpu_torch.runtime.sampling import SamplingConfig
+    from million_tpu_torch.runtime.scheduler import Request, Scheduler
+
+    wrappers = path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    g = GEOMETRIES["dm2"]
+    tables = cents_from_numpy(synthetic_cents(cfg.num_layers, cfg.head_dim, "dm2", seed=25), device=dev)
+    pcfg = PagedPQCacheConfig(num_layers=cfg.num_layers, nh_k=cfg.num_kv_heads, d=cfg.head_dim, M=g["M"],
+                              C=g["C"], Lt=128, page_size=2048, n_pages=10, max_seqs=2, pages_per_seq=5,
+                              dtype=cfg.dtype)
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, cfg.vocab_size, CKPT_PROMPT) for _ in range(2)]
+
+    def fresh(sampling):
+        s = Scheduler(params, cfg, pcfg, tables, sampling, seed=7, tick_chain=16, device=dev)
+        for rid, p in enumerate(prompts):
+            s.submit(Request(rid, p, CKPT_NEW_TOKENS))
+        return s
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.npz")
+        for name, sampling in (("greedy", SamplingConfig()), ("sampled", SamplingConfig(temperature=0.8, top_k=20))):
+            ref = fresh(sampling)
+            want = {f.rid: f.tokens for f in ref.run_to_completion()}
+            del ref
+            sched = fresh(sampling)
+            for _ in range(8):
+                sched.step()
+            pending = all(sched.slot_r[i] >= pcfg.Lt for i, r in enumerate(sched.slot_req) if r is not None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_session(path, sched)
+            t_save = time.perf_counter() - t0
+            del sched
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            resumed = load_session(path, params, cfg, pcfg, tables, sampling, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            got = {f.rid: f.tokens for f in resumed.run_to_completion()}
+            same = sorted(got) == sorted(want) == [0, 1] and all(np.array_equal(got[r], want[r]) for r in want)
+            nbytes = os.path.getsize(path)
+            log(f"[checkpoint] {name}: snapshot {nbytes / 1e9:.3f} GB after 8 steps (flush pending: {pending}), "
+                f"save {t_save:.3f} s, load {t_load:.3f} s; resumed tokens equal the uninterrupted run's: {same} "
+                f"({[len(t) for t in got.values()]} tokens); {card}")
+            if not (same and pending and nbytes < 1e9):
+                raise RuntimeError(f"session checkpoint check failed ({name})")
+            del resumed
+            torch.cuda.empty_cache()
+    for k, w in wrappers.items():
+        launches[k]["dm2"]["checkpoint"] = w.launches
+
+
 def build_model(dev):
     """llama-3.2-3b at full width and depth, random bf16 weights from seed 0."""
     import torch
@@ -1593,6 +2013,19 @@ def main() -> int:
     if "--pipeline-only" in sys.argv[1:]:
         pipeline_path(dev, {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}, card)
         return 0
+    only = {a for a in sys.argv[1:] if a in ("--c9-only", "--sessions-only")}
+    if only:  # fault C.9's phases and / or the long-context, mixed-serving and checkpoint phases
+        if "--c9-only" in only:
+            c9_kernels(dev)
+        cfg, params = build_model(dev)
+        if "--c9-only" in only:
+            c9_paths(dev, cfg, params, {k: {} for k in KERNELS})
+        if "--sessions-only" in only:
+            launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
+            long_context_phase(dev, cfg, params, launches, card)
+            mixed_phase(dev, cfg, params, launches, card)
+            checkpoint_phase(dev, cfg, params, launches, card)
+        return 0
     # the paths run a bf16 model, whose partials take the tensor-core versions
     causal = causal_phase(dev)
     rows = {"pq_decode_attention": {g: r for (g, e), r in kernel_phase(dev).items() if e == "stacked"},
@@ -1602,6 +2035,7 @@ def main() -> int:
                                    if shape == "chunk" and pr == "bf16"},
             "causal_attention": {g: causal["chunk"] for g in PATH_GEOMETRIES}}
     c4_phase(dev)
+    c9_rows = c9_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     tiny_check(dev)
@@ -1610,7 +2044,12 @@ def main() -> int:
     c1_phase(dev, cfg, params)
     launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
     main_path(dev, cfg, params, launches)
+    c9_launches = {k: {} for k in KERNELS}
+    c9_paths(dev, cfg, params, c9_launches)
     serving_path(dev, cfg, params, launches)
+    long_context_phase(dev, cfg, params, launches, card)
+    mixed_phase(dev, cfg, params, launches, card)
+    checkpoint_phase(dev, cfg, params, launches, card)
     del params
     torch.cuda.empty_cache()
     quality_path(dev, launches, card)
@@ -1626,6 +2065,15 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             })
+    for name, by_geom in c9_rows.items():  # fault C.9's d_m = 16 builds, launched by the dm16 paths
+        source, replaces = KERNELS[name]
+        r = by_geom["dm16"]
+        kernels.append({
+            "name": f"{name}[dm16]", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(c9_launches[name].values()), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+        })
     if any(k["launches"] <= 0 for k in kernels):
         raise RuntimeError("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}))

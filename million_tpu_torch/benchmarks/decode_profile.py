@@ -1,9 +1,10 @@
 """Where a decode step's time goes on the card: llama-3.2-3b at full width,
-a synthetic 32K cache (random codes as bench.py builds them), decode steps
+a synthetic 32K cache (--ctx; random codes as bench.py builds them), decode steps
 timed on the host clock and then traced with torch.profiler.
 
     python3 -m million_tpu_torch.benchmarks.decode_profile [--bs 4] [--steps 8]
     python3 -m million_tpu_torch.benchmarks.decode_profile --bs 6 --modes paged:dm2,paged:dm4_outlier_c128
+    python3 -m million_tpu_torch.benchmarks.decode_profile --bs 1 --ctx 131072 --modes pq:dm2
 
 For each mode (dense bf16 KV, pq_kernel dm2, pq_kernel dm4_outlier_c128 over
 the flat cache; paged:<geometry> for a serving tick, paged_decode_step over
@@ -27,36 +28,38 @@ from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
 from million_tpu_torch.models import llama
 from million_tpu_torch.models.paged_decode import paged_decode_step
 
-CTX, FILL = 32768, 32768 - 512
+CTX, HEADROOM = 32768, 512  # cache tokens, and those left free past the fill
 PAGE_SIZE = 2048
 GEOMETRIES = {"dm2": (64, 256, 0), "dm4_outlier_c128": (32, 128, 16)}
 
 
-def synthetic_state(cfg, bs, mode, gen, dev):
-    """A cache filled to FILL tokens with random contents, and its cents."""
+def synthetic_state(cfg, bs, mode, gen, dev, ctx=CTX):
+    """A cache of ctx tokens filled to ctx - 512 with random contents, and
+    its cents."""
     L, nk, d = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    fill = ctx - HEADROOM
     if mode == "dense":
-        c = init_dense_state(DenseCacheConfig(bs=bs, nh_k=nk, d=d, N_max=CTX), L, device=dev)
+        c = init_dense_state(DenseCacheConfig(bs=bs, nh_k=nk, d=d, N_max=ctx), L, device=dev)
         c["k"].normal_(generator=gen)
         c["v"].normal_(generator=gen)
-        c["length"] = FILL
+        c["length"] = fill
         return c, None
     kind, geom = mode.split(":")
     M, C, O = GEOMETRIES[geom]
-    if kind == "paged":  # every slot FILL tokens long, its pages one after the other
-        pps = CTX // PAGE_SIZE
+    if kind == "paged":  # every slot fill tokens long, its pages one after the other
+        pps = ctx // PAGE_SIZE
         pcfg = PagedPQCacheConfig(num_layers=L, nh_k=nk, d=d, M=M, C=C, page_size=PAGE_SIZE,
                                   n_pages=bs * pps, max_seqs=bs, pages_per_seq=pps, OK=O, OV=O)
         c = init_paged_state(pcfg, device=dev)
         c["page_table"].copy_(torch.arange(bs * pps, device=dev).reshape(bs, pps))
-        c["seq_n_codes"].fill_(FILL)
+        c["seq_n_codes"].fill_(fill)
         c["seq_n_pages"].fill_(pps)
         c["seq_active"].fill_(1)
         c["config"] = pcfg
         arenas, outliers = ("key_pool", "value_pool"), ("key_outlier_pool", "value_outlier_pool")
     else:
-        c = init_state(PQCacheConfig(bs=bs, nh_k=nk, d=d, M=M, C=C, N_max=CTX, OK=O, OV=O), L, device=dev)
-        c["n_codes"] = FILL
+        c = init_state(PQCacheConfig(bs=bs, nh_k=nk, d=d, M=M, C=C, N_max=ctx, OK=O, OV=O), L, device=dev)
+        c["n_codes"] = fill
         arenas, outliers = ("key_codes", "value_codes"), ("key_outliers", "value_outliers")
     for k in arenas:
         c[k].copy_(torch.randint(0, C, c[k].shape, generator=gen, device=dev, dtype=torch.uint8))
@@ -88,14 +91,15 @@ def busy_us(events) -> float:
     return total
 
 
-def profile_mode(params, cfg, bs, mode, steps, gen, dev):
-    cache, cents = synthetic_state(cfg, bs, mode, gen, dev)
+def profile_mode(params, cfg, bs, mode, steps, gen, dev, ctx=CTX):
+    cache, cents = synthetic_state(cfg, bs, mode, gen, dev, ctx)
+    fill = ctx - HEADROOM
     tok = torch.zeros((bs,), dtype=torch.long, device=dev)
     if mode.startswith("paged"):
         pcfg = cache.pop("config")
 
         def step(i):  # positions come from the device counters, as in a serving tick
-            return paged_decode_step(params, cfg, pcfg, tok, None, cache, cents, n_bound=CTX)
+            return paged_decode_step(params, cfg, pcfg, tok, None, cache, cents, n_bound=ctx)
 
         def rewind():
             cache["seq_r"].zero_()
@@ -103,10 +107,10 @@ def profile_mode(params, cfg, bs, mode, steps, gen, dev):
         run_mode = "dense" if mode == "dense" else "pq_kernel"
 
         def step(i):
-            return llama.decode_step(params, cfg, tok, FILL + i, cache, cents, mode=run_mode)
+            return llama.decode_step(params, cfg, tok, fill + i, cache, cents, mode=run_mode)
 
         def rewind():
-            cache.update({"length": FILL} if mode == "dense" else {"r": 0})
+            cache.update({"length": fill} if mode == "dense" else {"r": 0})
 
     for i in range(2):  # warm-up (and the kernel build)
         step(i)
@@ -128,7 +132,7 @@ def profile_mode(params, cfg, bs, mode, steps, gen, dev):
     for e in dev_events:
         by_name[e.name] += e.time_range.elapsed_us()
     busy = busy_us(dev_events) / steps / 1e3
-    print(f"[{mode}] bs={bs} step {wall_ms:.3f} ms (host clock, no profiler); device busy "
+    print(f"[{mode}] bs={bs} ctx={ctx} step {wall_ms:.3f} ms (host clock, no profiler); device busy "
           f"{busy:.3f} ms/step; idle share {max(0.0, 1 - busy / wall_ms):.3f}; "
           f"{len(dev_events) / steps:.0f} kernels/step")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -141,6 +145,7 @@ def main():
     ap.add_argument("--bs", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--modes", default="dense,pq:dm2,pq:dm4_outlier_c128")
+    ap.add_argument("--ctx", type=int, default=CTX, help="cache tokens (a multiple of 2048)")
     args = ap.parse_args()
     dev = torch.device("cuda")
     if not torch.cuda.is_available():
@@ -149,7 +154,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     params = llama.init_params(cfg, gen, device=dev)
     for mode in args.modes.split(","):
-        profile_mode(params, cfg, args.bs, mode, args.steps, gen, dev)
+        profile_mode(params, cfg, args.bs, mode, args.steps, gen, dev, args.ctx)
         torch.cuda.empty_cache()
 
 

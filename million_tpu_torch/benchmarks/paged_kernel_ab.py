@@ -4,15 +4,18 @@ pq_decode_attention) of this checkout against other copies of them, on the
 same inputs and card, in turns: B4 at the serving tick's shape (6 slots x
 32,640 codes in 2048-token pages, shuffled tables, S = 8 splits from the
 planner, a bf16 residual window with 97 live rows) and B1 at the flat decode
-step's (bs 4, 32,256 codes of a 32K arena, the same window), in dm2 and
-dm4_outlier_c128 (llama-3.2-3b: 8 KV heads, G = 3, d = 128).
+step's (bs 4, 32,256 codes of a 32K arena, the same window), in dm2,
+dm4_outlier_c128 and dm16 (M = 8, the wide builds; llama-3.2-3b: 8 KV heads,
+G = 3, d = 128).
 
     git archive <commit> million_tpu_torch/csrc | tar -x -C other/
     python3 -m million_tpu_torch.benchmarks.paged_kernel_ab --other other/million_tpu_torch/csrc
     python3 -m million_tpu_torch.benchmarks.paged_kernel_ab --knockouts
 
 An other copy is a directory holding pq_attention_passes.cuh,
-pq_paged_attention.cu and pq_decode_attention.cu. --knockouts writes
+pq_paged_attention.cu and pq_decode_attention.cu, whose C calls take this
+checkout's arguments (give an older copy's signature the missing ones
+first); --geometries leaves out the ones it does not compute. --knockouts writes
 knock-out copies of this checkout's sources into a temporary directory, each
 one edit of the passes (KNOCKOUTS: a pass alone, a pass with its codebook
 gather replaced by a value computed in registers, a pass with its codebook
@@ -43,7 +46,8 @@ from million_tpu_torch.ops import pq_attention_kernel as K
 from million_tpu_torch.ops import pq_paged_attention_kernel as P
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-GEOMETRIES = {"dm2": (64, 256, 0), "dm4_outlier_c128": (32, 128, 16)}  # M, C, exact channels a side
+# M, C, exact channels a side; dm16 (M = 8) runs the passes' wide builds
+GEOMETRIES = {"dm2": (64, 256, 0), "dm4_outlier_c128": (32, 128, 16), "dm16": (8, 256, 0)}
 NH_K, G, D, LT, LIVE_ROWS = 8, 3, 128, 128, 97
 SLOTS, SEQ, PAGE, PAGES_PER_SEQ, POOL_PAGES = 6, 32640, 2048, 17, 104  # the serving tick
 FLAT_BS, FLAT_N_MAX, FLAT_CODES = 4, 32768, 32256  # the flat decode step
@@ -54,17 +58,17 @@ VALUE_PASS = "// Pass 2:"  # where the value pass begins in pq_attention_passes.
 # the value pass, "value" from it on, "all")
 KNOCKOUTS = {
     "score_pass_alone": [
-        ("return launch(pq_value_kernel<G, PAGED>, pv, bs, smem_v, attr_value, st);",
+        ("return launch_value<G, PAGED>(pv, bs, smem_v, st);",
          "(void)smem_v; return cudaSuccess;", "all"),
         ("  e = res_bf16 ? launch_reduce<", "  if (0) e = res_bf16 ? launch_reduce<", "all")],
     "value_pass_alone": [
-        ("cudaError_t e = launch(pq_score_kernel<G, PAGED>, ps, bs, smem_s, attr_score, st);",
+        ("cudaError_t e = launch_score<G, PAGED>(ps, bs, smem_s, st);",
          "cudaError_t e = cudaSuccess; (void)smem_s;", "all"),
         ("  e = res_bf16 ? launch_reduce<", "  if (0) e = res_bf16 ? launch_reduce<", "all")],
     "reduce_alone": [
-        ("cudaError_t e = launch(pq_score_kernel<G, PAGED>, ps, bs, smem_s, attr_score, st);",
+        ("cudaError_t e = launch_score<G, PAGED>(ps, bs, smem_s, st);",
          "cudaError_t e = cudaSuccess; (void)smem_s;", "all"),
-        ("return launch(pq_value_kernel<G, PAGED>, pv, bs, smem_v, attr_value, st);",
+        ("return launch_value<G, PAGED>(pv, bs, smem_v, st);",
          "(void)smem_v; return cudaSuccess;", "all")],
     "score_gather_in_registers": [
         ("*reinterpret_cast<const float2*>(cent)", "make_float2((cent - kc) * 1e-6f, 1e-3f)", "score"),
@@ -78,8 +82,8 @@ KNOCKOUTS = {
         ("const size_t smem_s = with_cent(ps, need_s, sizeof(float) * (size_t)p.Ck * d, optin);",
          "ps.cent_in_smem = 0; const size_t smem_s = need_s;", "all")],
     "value_codebook_through_l1": [
-        ("const size_t smem_v = with_cent(pv, need_v, sizeof(float) * (size_t)p.Cv * d, optin);",
-         "pv.cent_in_smem = 0; const size_t smem_v = need_v;", "all")],
+        ("pv.cent_in_smem = head + std::max(cent_v + tiles, slab) <= (size_t)optin;",
+         "pv.cent_in_smem = 0;", "all")],
 }
 
 
@@ -122,7 +126,7 @@ def build_copy(src_dir: Path, out_dir: Path, tag: str):
     return tuple(libs)
 
 
-def make_cases(dev, gen):
+def make_cases(dev, gen, geometries):
     """name -> (kernel call, plain call, bytes), per geometry, for B4 and B1."""
     cases = {}
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -130,7 +134,8 @@ def make_cases(dev, gen):
     table = perm.reshape(SLOTS, PAGES_PER_SEQ).to(torch.int32).to(dev)
     lens = torch.full((SLOTS,), SEQ, dtype=torch.int32, device=dev)
     rows = torch.full((SLOTS,), LIVE_ROWS, dtype=torch.int32, device=dev)
-    for geom, (M, C, O) in GEOMETRIES.items():
+    for geom in geometries:
+        M, C, O = GEOMETRIES[geom]
         cents = [torch.randn((1, M, C, D // M), generator=gen, device=dev) for _ in range(2)]
         oidx = [torch.randperm(D, generator=torch.Generator().manual_seed(s))[:O].sort().values.to(torch.int32)
                 for s in (1, 2)]
@@ -178,6 +183,7 @@ def main(argv=None):
     ap.add_argument("--other", type=Path, nargs="*", default=[], help="directories holding other copies")
     ap.add_argument("--knockouts", action="store_true", help="also time this checkout's knock-out builds")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--geometries", default=",".join(GEOMETRIES), help="comma-separated, of " + ", ".join(GEOMETRIES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("paged_kernel_ab needs a CUDA device")
@@ -195,7 +201,7 @@ def main(argv=None):
     this = (P._lib, K._lib)
     gen = torch.Generator(device=dev).manual_seed(0)
     try:
-        for (kernel, geom), (kern, plain, nbytes) in make_cases(dev, gen).items():
+        for (kernel, geom), (kern, plain, nbytes) in make_cases(dev, gen, args.geometries.split(",")).items():
             want = plain()
             errs, times = {}, []
             for name, (plib, flib) in copies.items():

@@ -1,9 +1,19 @@
 """Continuous-batching serving benchmark on one NVIDIA GPU.
 
-Counterpart of million_tpu/benchmarks/serving_bench.py, with its two
-protocols that drive full slots:
+Counterpart of million_tpu/benchmarks/serving_bench.py, with its three
+protocols:
 
-  steady state (default, --steady TICKS): fill every slot with a max-prompt
+  mixed-length arrivals (default: neither --steady nor --preempt-demo):
+    --requests prompts (default 16) whose lengths are drawn from 4
+    word-aligned buckets between --min-prompt and --max-prompt (defaults 128
+    and 1,024), --max-new 64 new tokens each, 8 slots of 512-token pages (32
+    a slot). A warm-up scheduler serves one request per bucket first; a
+    fresh one is then timed through an explicit tick loop that samples the
+    pool from the host mirrors (no device reads): generated tokens/s,
+    requests/s, pool pages, peak pages in use, mean requests in flight,
+    preemptions and the pages a worst-case reservation would have charged
+    against those allocated on demand.
+  steady state (--steady TICKS): fill every slot with a max-prompt
     request, then time pure decode steps: steady tokens/s, per-token p50 and
     p90, and the steps that pay flush_paged_slots. The admission wall (with
     the first chain of decode ticks) is reported separately. The scheduler
@@ -24,9 +34,13 @@ Weights are random from --seed, codebooks synthetic (standard normal; the
 outlier geometries get 16 + 16 exact channels with zero centroid components).
 Every result line carries the card's name and power limit.
 
-Run:  python3 -m million_tpu_torch.benchmarks.serving_bench \\
+Run:  python3 -m million_tpu_torch.benchmarks.serving_bench            # mixed lengths
+      python3 -m million_tpu_torch.benchmarks.serving_bench \\
           --preset llama-3.2-3b --max-seqs 6 --max-prompt 32640 \\
           --page-size 2048 --pages-per-seq 17 --pool-pages 104 --steady 40
+The steady and preemption modes default to 6 slots of 32,640-token prompts in
+2048-token pages (17 a slot), the mixed mode to the reference's 8 slots of
+512-token pages (32 a slot) and prompts of 128-1,024 tokens.
 """
 
 from __future__ import annotations
@@ -216,15 +230,88 @@ def preempt_demo(args, cfg, pcfg, make_scheduler, card):
         raise SystemExit("preempt demo FAILED its invariants")
 
 
+def prompt_buckets(min_prompt: int, max_prompt: int):
+    """The 4 word-aligned prompt lengths of the mixed mode, between
+    min_prompt and max_prompt."""
+    return sorted({(min_prompt + k * (max_prompt - min_prompt) // 3) // 4 * 4 for k in range(4)})
+
+
+def mixed(args, cfg, pcfg, make_scheduler, card):
+    """The reference's default protocol: a stream of mixed-length requests
+    through one scheduler, ticked explicitly to sample pool use from the host
+    mirrors. Returns the result row (also printed as one JSON line)."""
+    rng = np.random.default_rng(args.seed)
+    buckets = prompt_buckets(args.min_prompt, args.max_prompt)
+    # warm every shape (one request per bucket and the decode ticks) on a throwaway scheduler, freed
+    # before the measured one is built
+    warm = make_scheduler()
+    for i, n in enumerate(buckets):
+        warm.submit(Request(-1 - i, np.zeros(n, np.int64), 2))
+    warm.run_to_completion()
+    dev = warm.device
+    del warm
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sched = make_scheduler()
+    total_prompt = 0
+    for rid in range(args.requests):
+        n = int(rng.choice(buckets))
+        total_prompt += n
+        sched.submit(Request(rid, rng.integers(0, cfg.vocab_size, n), args.max_new))
+    _sync(dev)
+    t0 = time.perf_counter()
+    peak_pages = inflight_acc = worst_case_acc = ticks = 0
+    while sched.waiting or any(r is not None for r in sched.slot_req):
+        if sched.step() == 0 and sched.waiting:
+            raise RuntimeError("scheduler stalled")
+        ticks += 1
+        peak_pages = max(peak_pages, int(sched.slot_pages.sum()))
+        act = [i for i, r in enumerate(sched.slot_req) if r is not None]
+        inflight_acc += len(act)
+        # the pages a worst-case reservation (prompt + max_new + one window) would charge for the same
+        # requests in flight
+        worst_case_acc += sum(-(-(len(sched.slot_req[i].prompt) + sched.slot_req[i].max_new_tokens + pcfg.Lt)
+                                // pcfg.page_size) for i in act)
+        if ticks > 100000:
+            raise RuntimeError("runaway serving bench")
+    sched.drain()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    finished = sched.finished
+    n_gen = sum(len(f.tokens) for f in finished)
+    if len(finished) != args.requests:
+        raise RuntimeError(f"served {len(finished)} of {args.requests} requests")
+    log(f"served {len(finished)} requests | prompt tokens {total_prompt} | generated {n_gen} | wall {wall:.2f} s")
+    row = {
+        "metric": f"serving throughput, {args.preset}, {args.requests} reqs x {args.max_new} new tokens, "
+                  f"{pcfg.max_seqs} slots (paged PQ, continuous batching)",
+        "value": n_gen / wall,
+        "unit": "generated tokens/s",
+        "requests_per_s": len(finished) / wall,
+        "pool_pages": pcfg.n_pages,
+        "peak_pages_used": peak_pages,
+        "mean_in_flight": inflight_acc / max(ticks, 1),
+        "preemptions": sched.preemptions,
+        "worst_case_overcommit": worst_case_acc / max(inflight_acc, 1),
+        "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    return row, sched
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--preset", default="llama-3.2-3b", choices=sorted(PRESETS))
-    ap.add_argument("--max-new", type=int, default=64, help="new tokens per request (--preempt-demo)")
-    ap.add_argument("--max-prompt", type=int, default=32640)
-    ap.add_argument("--max-seqs", type=int, default=6, help="scheduler slots")
-    ap.add_argument("--page-size", type=int, default=2048,
-                    help="tokens per page; the card needs a multiple of 256")
-    ap.add_argument("--pages-per-seq", type=int, default=17)
+    ap.add_argument("--max-new", type=int, default=64,
+                    help="new tokens per request (mixed and --preempt-demo)")
+    ap.add_argument("--requests", type=int, default=16, help="requests of the mixed mode")
+    ap.add_argument("--min-prompt", type=int, default=128, help="shortest prompt bucket (mixed mode)")
+    ap.add_argument("--max-prompt", type=int, default=None,
+                    help="longest prompt (default 1024 mixed, 32640 steady / preempt demo)")
+    ap.add_argument("--max-seqs", type=int, default=None, help="scheduler slots (default 8 mixed, else 6)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per page (default 512 mixed, else 2048); the card needs a multiple of 256")
+    ap.add_argument("--pages-per-seq", type=int, default=None, help="(default 32 mixed, else 17)")
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="page-pool size (default max_seqs * pages_per_seq); shrink it below the "
                     "worst-case demand to exercise on-demand growth and preemption")
@@ -232,14 +319,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--admit-chunk", type=int, default=2048, help="chunked-admission chunk length")
     ap.add_argument("--geometry", default="dm2", choices=sorted(GEOMETRIES))
-    ap.add_argument("--steady", type=int, default=40, metavar="STEPS",
-                    help="steady-state mode: timed scheduler steps after admission")
+    ap.add_argument("--steady", type=int, default=0, metavar="STEPS",
+                    help="steady-state mode: timed scheduler steps after admission (0: the mixed mode, "
+                    "unless --preempt-demo)")
     ap.add_argument("--tick-chain", type=int, default=8, help="most decode ticks chained per step")
     ap.add_argument("--preempt-demo", action="store_true")
     ap.add_argument("--profile-admission", action="store_true",
                     help="trace the admission step (steady-state mode)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (small presets only)")
     args = ap.parse_args(argv)
+    is_mixed = not (args.steady or args.preempt_demo or args.profile_admission)
+    for name, mixed_default, full_default in (("max_prompt", 1024, 32640), ("max_seqs", 8, 6),
+                                              ("page_size", 512, 2048), ("pages_per_seq", 32, 17)):
+        if getattr(args, name) is None:
+            setattr(args, name, mixed_default if is_mixed else full_default)
 
     dev = torch.device(args.device)
     card = card_line() if dev.type == "cuda" else "cpu (not a device measurement)"
@@ -266,7 +359,10 @@ def main(argv=None):
                          admit_chunk=args.admit_chunk, tick_chain=args.tick_chain, device=dev)
 
     log(f"card: {card}")
-    (preempt_demo if args.preempt_demo else steady_state)(args, cfg, pcfg, make_scheduler, card)
+    if is_mixed:
+        mixed(args, cfg, pcfg, make_scheduler, card)
+    else:
+        (preempt_demo if args.preempt_demo else steady_state)(args, cfg, pcfg, make_scheduler, card)
 
 
 if __name__ == "__main__":

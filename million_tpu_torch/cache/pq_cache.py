@@ -140,3 +140,76 @@ def stacked_prefix_write(
         r0, t = cache["r"], k_tail.shape[2]
         cache["key_residual"][li, :, :, r0:r0 + t] = k_tail
         cache["value_residual"][li, :, :, r0:r0 + t] = v_tail
+
+
+# --------------------------------------------------------------------------
+# single-layer helpers (million_tpu/cache/pq_cache.py:165,194,239)
+# --------------------------------------------------------------------------
+# One layer's cache is the stacked cache without its leading L axis:
+# key_codes / value_codes (bs, nh_k, N_max, M | M_v) uint8, key_residual /
+# value_residual (bs, nh_k, Lt, d), and the host counters n_codes and r. The
+# helpers update it in place and return it. They encode through
+# pq/ops.runtime_encode, so a CUDA cache runs the fused encode kernel.
+
+
+def init_layer_state(cfg: PQCacheConfig, device="cuda") -> PQCache:
+    """One layer's empty cache (the stacked cache's layer view, owned)."""
+    st = init_state(dataclasses.replace(cfg, OK=0, OV=0), 1, device)
+    return {k: (v[0].clone() if torch.is_tensor(v) else v) for k, v in st.items()}
+
+
+def flush_window(state: PQCache, key_cents: torch.Tensor, value_cents: torch.Tensor,
+                 layout: str = "strided") -> PQCache:
+    """Encode the FULL residual window into the arena at n_codes, then
+    n_codes += Lt and r = 0. The window's rows stay in place; new tokens
+    overwrite them and r masks them out of attention."""
+    from million_tpu_torch.pq.ops import runtime_encode
+
+    Lt = state["key_residual"].shape[2]
+    s = state["n_codes"]
+    if s + Lt > state["key_codes"].shape[2]:
+        raise ValueError(f"a flush of {Lt} codes overflows the arena at {s}")
+    for side, cents in (("key", key_cents), ("value", value_cents)):
+        state[side + "_codes"][:, :, s:s + Lt] = runtime_encode(state[side + "_residual"], cents, layout)
+    state["n_codes"] = s + Lt
+    state["r"] = 0
+    return state
+
+
+def prefill_update(state: PQCache, k: torch.Tensor, v: torch.Tensor, key_cents: torch.Tensor,
+                   value_cents: torch.Tensor, layout: str = "strided") -> PQCache:
+    """Quantize-on-append of a prefill chunk k / v (bs, nh_k, n, d): the
+    4-aligned prefix is encoded into the arena at n_codes, a ragged tail of
+    n % 4 tokens goes into the exact residual window at r (the reference's
+    numerics: those tokens stay exact)."""
+    from million_tpu_torch.pq.ops import runtime_encode
+
+    n = k.shape[2]
+    n4 = n // WORD * WORD
+    tail = n - n4
+    s, r0 = state["n_codes"], state["r"]
+    if s + n4 > state["key_codes"].shape[2] or r0 + tail > state["key_residual"].shape[2]:
+        raise ValueError(f"a prefill of {n} tokens overflows the cache at n_codes={s}, r={r0}")
+    if n4:
+        state["key_codes"][:, :, s:s + n4] = runtime_encode(k[:, :, :n4], key_cents, layout)
+        state["value_codes"][:, :, s:s + n4] = runtime_encode(v[:, :, :n4], value_cents, layout)
+        state["n_codes"] = s + n4
+    if tail:
+        state["key_residual"][:, :, r0:r0 + tail] = k[:, :, n4:]
+        state["value_residual"][:, :, r0:r0 + tail] = v[:, :, n4:]
+        state["r"] = r0 + tail
+    return state
+
+
+def decode_update(state: PQCache, k: torch.Tensor, v: torch.Tensor, key_cents: torch.Tensor,
+                  value_cents: torch.Tensor, layout: str = "strided") -> PQCache:
+    """Append one decode token k / v (bs, nh_k, 1, d) to the residual window,
+    flushing a full window first (a host test on the counter where the
+    reference takes a lax.cond)."""
+    if state["r"] >= state["key_residual"].shape[2]:
+        flush_window(state, key_cents, value_cents, layout)
+    r = state["r"]
+    state["key_residual"][:, :, r:r + 1] = k
+    state["value_residual"][:, :, r:r + 1] = v
+    state["r"] = r + 1
+    return state

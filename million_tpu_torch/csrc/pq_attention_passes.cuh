@@ -29,9 +29,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #define TILE 256      // tokens per tile
 #define THREADS 512   // threads per block: two per token in the score pass
-#define MAX_DM 8      // largest subspace width supported
 #define NEG_BIG (-1e30f)
 
 struct Params {
@@ -52,6 +53,7 @@ struct Params {
   int srow_len;                // tokens per (b, h) row of `scores`
   int cent_in_smem;            // the pass's codebook sits in shared memory
   int rs;                      // shared-memory row stride of the pass's code tiles (bytes)
+  int kwide, vwide;            // the passes' builds: any d_m and M (1), or d_m <= 8, M % 4 == 0 (0)
   // flat mode
   int N_max, n_codes, chunk;
   // paged mode
@@ -98,11 +100,19 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// Copy nt rows of rb bytes (global rows contiguous, rb % 4 == 0) into
-// shared rows of stride rs, in 16-byte pieces when rb allows, else 4-byte
-// pieces.
+// Copy nt rows of rb bytes (global rows contiguous) into shared rows of
+// stride rs, in 16-byte pieces when rb allows, else 4-byte pieces. ANY_RB
+// (the wide instantiations) also takes rb % 4 != 0 (fewer than 4 subspaces,
+// or a count that is not a multiple of 4): those rows go byte by byte with
+// plain loads and stores, visible after the barrier that every reader passes.
+template <bool ANY_RB = false>
 __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, int nt, int rb, int rs) {
-  if (rb % 16 == 0) {
+  if (ANY_RB && rb % 4 != 0) {
+    for (int i = threadIdx.x; i < nt * rb; i += THREADS) {
+      const int r = i / rb, c = i - r * rb;
+      dst[r * rs + c] = __ldg(src + (long)r * rb + c);
+    }
+  } else if (rb % 16 == 0) {
     const int per = rb / 16;
     for (int i = threadIdx.x; i < nt * per; i += THREADS) {
       const int r = i / per, c = i - r * per;
@@ -142,6 +152,18 @@ __device__ __forceinline__ const uint8_t* copy_span(uint8_t* dst, const uint8_t*
 // Bytes of one shared slot of a tile's outlier rows (copy_span's span and
 // its lead); 0 without outliers.
 __host__ __device__ __forceinline__ int outlier_slot(int o) { return o > 0 ? TILE * 2 * o + 16 : 0; }
+
+// The value pass's columns (see pq_value_kernel): dims of a subspace slice
+// held in registers, and the number of thread groups that split a tile's
+// tokens. The host sizes the groups' slabs of partial sums from it.
+__host__ __device__ constexpr int value_slice_width(int DM, int G) { return (DM == 16 && G > 3) ? 8 : DM; }
+
+__host__ __device__ __forceinline__ int value_groups(int DM, int G, int Mv, int dmv, int OV) {
+  const int sw = value_slice_width(DM, G);
+  const int nsl = DM == 8 ? 1 : (dmv + sw - 1) / sw;
+  const int cpad = (Mv * nsl + OV + 31) / 32 * 32;
+  return THREADS / cpad;
+}
 
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   // n is a multiple of 4 and both pointers are 16-byte aligned
@@ -215,9 +237,32 @@ __device__ __forceinline__ void score_code(float (&s)[4 * GQ], const float4* qt4
   }
 }
 
+// The wide instantiation's term of one code: any subspace width, in float4
+// pieces where it is a multiple of 4 (d_m 16, 32, 64, 128), else one float
+// at a time.
+template <int GQ>
+__device__ __forceinline__ void score_code_wide(float (&s)[4 * GQ], const float4* qt4, const float* kc,
+                                                int m, int c, int M, int Ck, int dmk) {
+  const float* cent = kc + ((long)m * Ck + c) * dmk;
+  if (dmk % 4 == 0) {
+    const float4* c4 = reinterpret_cast<const float4*>(cent);
+    for (int t = 0; t < dmk; t += 4) {
+      const float4 cv = c4[t / 4];
+      fma_dim<GQ>(s, qt4, m + t * M, cv.x);
+      fma_dim<GQ>(s, qt4, m + (t + 1) * M, cv.y);
+      fma_dim<GQ>(s, qt4, m + (t + 2) * M, cv.z);
+      fma_dim<GQ>(s, qt4, m + (t + 3) * M, cv.w);
+    }
+  } else {
+    for (int t = 0; t < dmk; ++t) fma_dim<GQ>(s, qt4, m + t * M, cent[t]);
+  }
+}
+
 // Pass 1: scores of the split's tokens to p.scores, and the split's softmax
-// max and sum to p.ml_part.
-template <int G, bool PAGED>
+// max and sum to p.ml_part. WIDE = false is the build of d_m <= 8 with M % 4
+// == 0 (every main path); WIDE = true takes any subspace width and any M
+// (the code rows read byte by byte where M % 4 != 0).
+template <int G, bool WIDE, bool PAGED>
 __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
   constexpr int GQ = (G + 3) / 4;  // groups of four query rows
   constexpr int GP = 4 * GQ;       // padded query rows
@@ -245,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
   const uint8_t* ko_tile[2] = {kobuf, kobuf + kos};  // each slot's first outlier row
   auto prefetch = [&](int buf, int n0) {
     const int nt = min(TILE, end - n0);
-    copy_rows(kbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.kcodes, b, h, n0, M), nt, M, p.rs);
+    copy_rows<WIDE>(kbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.kcodes, b, h, n0, M), nt, M, p.rs);
     if (p.kout) {
       const uint8_t* at = copy_span(kobuf + buf * kos, token_rows<PAGED>(p, p.kout, b, h, n0, okb), nt * okb);
       if (buf) ko_tile[1] = at; else ko_tile[0] = at;
@@ -291,7 +336,17 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
     for (int g = 0; g < GP; ++g) s[g] = 0.f;
     if (t_me < nt) {
       const uint8_t* row = kbuf + buf * TILE * p.rs + t_me * p.rs;
-      if (msplit % 16 == 0) {
+      if constexpr (WIDE) {
+        if (M % 4 == 0) {
+          for (int m0 = m_lo; m0 < m_hi; m0 += 4) {
+            const uint32_t w = *reinterpret_cast<const uint32_t*>(row + m0);
+            for (int k = 0; k < 4; ++k)
+              score_code_wide<GQ>(s, qt4, kc, m0 + k, (w >> (8 * k)) & 0xFF, M, p.Ck, p.dmk);
+          }
+        } else {
+          for (int m = m_lo; m < m_hi; ++m) score_code_wide<GQ>(s, qt4, kc, m, row[m], M, p.Ck, p.dmk);
+        }
+      } else if (msplit % 16 == 0) {
         for (int m0 = m_lo; m0 < m_hi; m0 += 16) {
           const uint4 w = *reinterpret_cast<const uint4*>(row + m0);
           const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
@@ -369,10 +424,24 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
 
 // Pass 2: P @ V over the split, V decoded on the fly, normalised by the
 // split's sum; writes the split's (out, lse).
-template <int G, bool PAGED>
+//
+// A thread owns one column (a subspace, or an exact outlier channel) for one
+// group of the tile's tokens and keeps that column's dims of the G query rows
+// in registers, acc[G][SW]. DM is the build's width:
+//   DM = 8:  d_m <= 8 with M_v % 4 == 0 (every main path): one column per
+//            subspace, SW = 8 registers a row, d_m 2 and 4 read as one
+//            float2 / float4, other widths up to 8 one float at a time;
+//   DM = 16: every other width (d_m 16 natively, 32 / 64 / 128 as slices):
+//            a column is a slice of SW dims of one subspace, SW = 16 for G <=
+//            3 and 8 above (acc stays at most 64 floats a thread; G = 4 at 16
+//            spilled), read as float4s where d_m % 16 == 0, else one float
+//            at a time; the code rows may have any M_v.
+template <int G, int DM, bool PAGED>
 __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
+  static_assert(DM == 8 || DM == 16, "the value pass is built for DM 8 and 16");
   constexpr int GQ = (G + 3) / 4;
   constexpr int GP = 4 * GQ;
+  constexpr int SW = value_slice_width(DM, G);  // dims of a column in registers
   extern __shared__ float4 smem4[];
   uint8_t* ptr = reinterpret_cast<uint8_t*>(smem4);
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -388,6 +457,11 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
     return;
   }
 
+  float* o_s = reinterpret_cast<float*>(ptr); ptr += (G * d + 3) / 4 * 16;
+  float* co_s = reinterpret_cast<float*>(ptr); ptr += (G * (OV > 0 ? OV : 1) * 4 + 15) / 16 * 16;
+  // the thread groups' partial sums, written over the space of the codebook
+  // and tiles below once the last tile is done (the host sizes it for both)
+  float* slab = reinterpret_cast<float*>(ptr);
   const float* vc = p.vcent;
   if (p.cent_in_smem) { vc = reinterpret_cast<float*>(ptr); ptr += (size_t)p.Cv * d * 4; }
   uint8_t* vbuf = ptr;  ptr += 2 * TILE * p.rs;
@@ -395,16 +469,14 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
   uint8_t* vobuf = ptr; ptr += 2 * vos;
   const int sb = G * 4;  // score row bytes
   uint8_t* sbuf = ptr;  ptr += (2 * TILE * sb + 15) / 16 * 16;
-  float* p_s = reinterpret_cast<float*>(ptr); ptr += TILE * GP * 4;  // p_s[t][GP]
-  float* o_s = reinterpret_cast<float*>(ptr); ptr += (G * d + 3) / 4 * 16;
-  float* co_s = reinterpret_cast<float*>(ptr);
+  float* p_s = reinterpret_cast<float*>(ptr);  // p_s[t][GP]
 
   const uint8_t* sg = reinterpret_cast<const uint8_t*>(p.scores + bh * (long)p.srow_len * G);
 
   const uint8_t* vo_tile[2] = {vobuf, vobuf + vos};
   auto prefetch = [&](int buf, int n0) {
     const int nt = min(TILE, end - n0);
-    copy_rows(vbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.vcodes, b, h, n0, Mv), nt, Mv, p.rs);
+    copy_rows<(DM == 16)>(vbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.vcodes, b, h, n0, Mv), nt, Mv, p.rs);
     if (p.vout) {
       const uint8_t* at = copy_span(vobuf + buf * vos, token_rows<PAGED>(p, p.vout, b, h, n0, ovb), nt * ovb);
       if (buf) vo_tile[1] = at; else vo_tile[0] = at;
@@ -414,8 +486,6 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
   };
   prefetch(0, start);
   if (p.cent_in_smem) stage(const_cast<float*>(vc), p.vcent, p.Cv * d);
-  for (int i = tid; i < G * d; i += THREADS) o_s[i] = 0.f;
-  for (int i = tid; i < G * OV; i += THREADS) co_s[i] = 0.f;
   float m_s[G], l_s[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -424,18 +494,23 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
   }
   const float4* p4 = reinterpret_cast<const float4*>(p_s);
 
-  // column col in [0, Mv) is a subspace, [Mv, Mv + OV) an exact outlier
-  // channel; ngrp thread groups split the tile's tokens.
-  const int ncol = Mv + OV;
+  // column col in [0, Mv * nsl) is slice col % nsl of subspace col / nsl,
+  // [Mv * nsl, Mv * nsl + OV) an exact outlier channel; ngrp thread groups
+  // split the tile's tokens.
+  const int dmv = p.dmv;
+  const int nsl = DM == 8 ? 1 : (dmv + SW - 1) / SW;
+  const int nsub = Mv * nsl;
+  const int ncol = nsub + OV;
   const int cpad = (ncol + 31) / 32 * 32;
-  const int ngrp = THREADS / cpad;
+  const int ngrp = value_groups(DM, G, Mv, dmv, OV);
   const int col = tid % cpad, grp = tid / cpad;
   const bool col_ok = col < ncol && grp < ngrp;
-  float acc[G][MAX_DM];
+  const int m_col = col / nsl, sl = col - m_col * nsl;  // the column's subspace and slice
+  float acc[G][SW];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < MAX_DM; ++j) acc[g][j] = 0.f;
+    for (int j = 0; j < SW; ++j) acc[g][j] = 0.f;
 
   int buf = 0;
   for (int n0 = start; n0 < end; n0 += TILE, buf ^= 1) {
@@ -456,38 +531,80 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
     __syncthreads();
     if (col_ok) {
       const uint8_t* vb = vbuf + buf * TILE * p.rs;
-      if (col < Mv) {
-        const int dmv = p.dmv;
-        const float* vcol = vc + (long)col * p.Cv * dmv;
+      if (col < nsub) {
+        const float* vcol = vc + (long)m_col * p.Cv * dmv + sl * SW;
+        if constexpr (DM == 8) {
 #pragma unroll 4
-        for (int t = grp; t < nt; t += ngrp) {
-          float pg[GP];
+          for (int t = grp; t < nt; t += ngrp) {
+            float pg[GP];
 #pragma unroll
-          for (int j = 0; j < GQ; ++j) {
-            const float4 pv = p4[t * GQ + j];
-            pg[4 * j] = pv.x; pg[4 * j + 1] = pv.y; pg[4 * j + 2] = pv.z; pg[4 * j + 3] = pv.w;
+            for (int j = 0; j < GQ; ++j) {
+              const float4 pv = p4[t * GQ + j];
+              pg[4 * j] = pv.x; pg[4 * j + 1] = pv.y; pg[4 * j + 2] = pv.z; pg[4 * j + 3] = pv.w;
+            }
+            const float* cent = vcol + vb[t * p.rs + col] * dmv;
+            if (dmv == 2) {
+              const float2 cv = *reinterpret_cast<const float2*>(cent);
+#pragma unroll
+              for (int g = 0; g < G; ++g) {
+                acc[g][0] = fmaf(pg[g], cv.x, acc[g][0]);
+                acc[g][1] = fmaf(pg[g], cv.y, acc[g][1]);
+              }
+            } else if (dmv == 4) {
+              const float4 cv = *reinterpret_cast<const float4*>(cent);
+#pragma unroll
+              for (int g = 0; g < G; ++g) {
+                acc[g][0] = fmaf(pg[g], cv.x, acc[g][0]);
+                acc[g][1] = fmaf(pg[g], cv.y, acc[g][1]);
+                acc[g][2] = fmaf(pg[g], cv.z, acc[g][2]);
+                acc[g][3] = fmaf(pg[g], cv.w, acc[g][3]);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < DM; ++j) {
+                if (j < dmv) {
+                  const float cv = cent[j];
+#pragma unroll
+                  for (int g = 0; g < G; ++g) acc[g][j] = fmaf(pg[g], cv, acc[g][j]);
+                }
+              }
+            }
           }
-          const float* cent = vcol + vb[t * p.rs + col] * dmv;
-          if (dmv == 2) {
-            const float2 cv = *reinterpret_cast<const float2*>(cent);
+        } else if (dmv % 16 == 0) {  // whole slices of SW dims, float4 reads
+#pragma unroll 2
+          for (int t = grp; t < nt; t += ngrp) {
+            float pg[GP];
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              acc[g][0] = fmaf(pg[g], cv.x, acc[g][0]);
-              acc[g][1] = fmaf(pg[g], cv.y, acc[g][1]);
+            for (int j = 0; j < GQ; ++j) {
+              const float4 pv = p4[t * GQ + j];
+              pg[4 * j] = pv.x; pg[4 * j + 1] = pv.y; pg[4 * j + 2] = pv.z; pg[4 * j + 3] = pv.w;
             }
-          } else if (dmv == 4) {
-            const float4 cv = *reinterpret_cast<const float4*>(cent);
+            const float4* c4 = reinterpret_cast<const float4*>(vcol + vb[t * p.rs + m_col] * dmv);
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              acc[g][0] = fmaf(pg[g], cv.x, acc[g][0]);
-              acc[g][1] = fmaf(pg[g], cv.y, acc[g][1]);
-              acc[g][2] = fmaf(pg[g], cv.z, acc[g][2]);
-              acc[g][3] = fmaf(pg[g], cv.w, acc[g][3]);
+            for (int q = 0; q < SW / 4; ++q) {
+              const float4 cv = c4[q];
+#pragma unroll
+              for (int g = 0; g < G; ++g) {
+                acc[g][4 * q + 0] = fmaf(pg[g], cv.x, acc[g][4 * q + 0]);
+                acc[g][4 * q + 1] = fmaf(pg[g], cv.y, acc[g][4 * q + 1]);
+                acc[g][4 * q + 2] = fmaf(pg[g], cv.z, acc[g][4 * q + 2]);
+                acc[g][4 * q + 3] = fmaf(pg[g], cv.w, acc[g][4 * q + 3]);
+              }
             }
-          } else {
+          }
+        } else {  // a width that is not a multiple of 16: the slice's live dims one at a time
+          const int live = min(SW, dmv - sl * SW);
+          for (int t = grp; t < nt; t += ngrp) {
+            float pg[GP];
 #pragma unroll
-            for (int j = 0; j < MAX_DM; ++j) {
-              if (j < dmv) {
+            for (int j = 0; j < GQ; ++j) {
+              const float4 pv = p4[t * GQ + j];
+              pg[4 * j] = pv.x; pg[4 * j + 1] = pv.y; pg[4 * j + 2] = pv.z; pg[4 * j + 3] = pv.w;
+            }
+            const float* cent = vcol + vb[t * p.rs + m_col] * dmv;
+#pragma unroll
+            for (int j = 0; j < SW; ++j) {
+              if (j < live) {
                 const float cv = cent[j];
 #pragma unroll
                 for (int g = 0; g < G; ++g) acc[g][j] = fmaf(pg[g], cv, acc[g][j]);
@@ -497,7 +614,7 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
         }
       } else {
         const __nv_bfloat16* vo =
-            reinterpret_cast<const __nv_bfloat16*>(buf ? vo_tile[1] : vo_tile[0]) + (col - Mv);
+            reinterpret_cast<const __nv_bfloat16*>(buf ? vo_tile[1] : vo_tile[0]) + (col - nsub);
 #pragma unroll 4
         for (int t = grp; t < nt; t += ngrp) {
           const float v = __bfloat162float(vo[t * OV]);
@@ -515,18 +632,33 @@ __global__ void __launch_bounds__(THREADS, 1) pq_value_kernel(Params p) {
     __syncthreads();  // p_s and this buffer are rewritten next tile
   }
 
-  // sum the thread groups, place the outlier channels, normalise
+  // sum the thread groups in a fixed order, so that a launch gives the same
+  // bits on every run: each group stores its accumulators to its own slab,
+  // slab[grp][g][W] with the d dims then the OV exact channels (every entry
+  // has one writer), and after one barrier each (g, dim) is summed over the
+  // slabs in group order. Then place the outlier channels and normalise.
+  const int W = d + OV;
   if (col_ok) {
-    if (col < Mv) {
+    float* mine = slab + (long)grp * G * W;
+    if (col < nsub) {
+      const int j0 = sl * SW;
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int j = 0; j < MAX_DM; ++j)
-          if (j < p.dmv) atomicAdd(&o_s[g * d + col + j * Mv], acc[g][j]);
+        for (int j = 0; j < SW; ++j)
+          if (j0 + j < dmv) mine[g * W + m_col + (j0 + j) * Mv] = acc[g][j];
     } else {
 #pragma unroll
-      for (int g = 0; g < G; ++g) atomicAdd(&co_s[g * OV + col - Mv], acc[g][0]);
+      for (int g = 0; g < G; ++g) mine[g * W + d + col - nsub] = acc[g][0];
     }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * W; i += THREADS) {
+    float s = slab[i];
+    for (int k = 1; k < ngrp; ++k) s += slab[(long)k * G * W + i];
+    const int g = i / W, c = i - g * W;
+    if (c < d) o_s[g * d + c] = s;
+    else co_s[g * OV + c - d] = s;
   }
   __syncthreads();
   for (int i = tid; i < G * OV; i += THREADS) {
@@ -687,10 +819,38 @@ static size_t with_cent(Params& p, size_t need, size_t cent_bytes, int optin) {
   return p.cent_in_smem ? need + cent_bytes : need;
 }
 
+// One launch of a pass's instantiation, each with its own record of the
+// shared memory its attribute allows. The score pass's build (p.kwide) and
+// the value pass's (p.vwide: DM 16, else 8) are the caller's choice: the
+// wrapper's route (decode_route in ops/pq_attention_kernel.py) decides them
+// for the geometry.
+template <int G, bool WIDE, bool PAGED>
+static cudaError_t launch_score_build(const Params& p, int bs, size_t smem, cudaStream_t st) {
+  static size_t attr_set = 0;
+  return launch(pq_score_kernel<G, WIDE, PAGED>, p, bs, smem, attr_set, st);
+}
+
+template <int G, int DM, bool PAGED>
+static cudaError_t launch_value_build(const Params& p, int bs, size_t smem, cudaStream_t st) {
+  static size_t attr_set = 0;
+  return launch(pq_value_kernel<G, DM, PAGED>, p, bs, smem, attr_set, st);
+}
+
+template <int G, bool PAGED>
+static cudaError_t launch_score(const Params& p, int bs, size_t smem, cudaStream_t st) {
+  return p.kwide ? launch_score_build<G, true, PAGED>(p, bs, smem, st)
+                 : launch_score_build<G, false, PAGED>(p, bs, smem, st);
+}
+
+template <int G, bool PAGED>
+static cudaError_t launch_value(const Params& p, int bs, size_t smem, cudaStream_t st) {
+  return p.vwide ? launch_value_build<G, 16, PAGED>(p, bs, smem, st)
+                 : launch_value_build<G, 8, PAGED>(p, bs, smem, st);
+}
+
 template <int G, bool PAGED>
 static cudaError_t launch_passes(const Params& p, int bs, int optin, cudaStream_t st) {
   constexpr int GP = 4 * ((G + 3) / 4);
-  static size_t attr_score = 0, attr_value = 0;
   const int d = p.d;
   Params ps = p;
   ps.rs = code_row_stride(p.M);
@@ -699,16 +859,22 @@ static cudaError_t launch_passes(const Params& p, int bs, int optin, cudaStream_
                         up16(4 * (size_t)G * (THREADS / 32));
   if (need_s > (size_t)optin) return cudaErrorInvalidConfiguration;
   const size_t smem_s = with_cent(ps, need_s, sizeof(float) * (size_t)p.Ck * d, optin);
-  cudaError_t e = launch(pq_score_kernel<G, PAGED>, ps, bs, smem_s, attr_score, st);
+  cudaError_t e = launch_score<G, PAGED>(ps, bs, smem_s, st);
   if (e != cudaSuccess) return e;
+  // the value pass: its sums, then the codebook (when it fits) and the
+  // tiles, which the thread groups' slabs overwrite after the last tile
   Params pv = p;
   pv.rs = code_row_stride(p.Mv);
-  const size_t need_v = 2 * TILE * (size_t)pv.rs + 2 * (size_t)outlier_slot(p.OV) +
-                        up16(2 * TILE * 4 * (size_t)G) + (size_t)TILE * GP * 4 +
-                        up16(4 * (size_t)G * d) + up16(4 * (size_t)G * (p.OV > 0 ? p.OV : 1));
-  if (need_v > (size_t)optin) return cudaErrorInvalidConfiguration;
-  const size_t smem_v = with_cent(pv, need_v, sizeof(float) * (size_t)p.Cv * d, optin);
-  return launch(pq_value_kernel<G, PAGED>, pv, bs, smem_v, attr_value, st);
+  const size_t head = up16(4 * (size_t)G * d) + up16(4 * (size_t)G * (p.OV > 0 ? p.OV : 1));
+  const size_t tiles = 2 * TILE * (size_t)pv.rs + 2 * (size_t)outlier_slot(p.OV) +
+                       up16(2 * TILE * 4 * (size_t)G) + (size_t)TILE * GP * 4;
+  const size_t slab = sizeof(float) * (size_t)G * (d + p.OV) *
+                      value_groups(p.vwide ? 16 : 8, G, p.Mv, p.dmv, p.OV);
+  const size_t cent_v = sizeof(float) * (size_t)p.Cv * d;
+  if (head + std::max(tiles, slab) > (size_t)optin) return cudaErrorInvalidConfiguration;
+  pv.cent_in_smem = head + std::max(cent_v + tiles, slab) <= (size_t)optin;
+  const size_t smem_v = head + std::max(pv.cent_in_smem ? cent_v + tiles : tiles, slab);
+  return launch_value<G, PAGED>(pv, bs, smem_v, st);
 }
 
 // The reduce pass over residual rows of T (its shared memory may pass 48 KB

@@ -148,8 +148,17 @@ __global__ void __launch_bounds__(THREADS, 1) pq_chunk_attention_kernel(ChunkPar
   for (int n0 = 0; n0 < p.n_codes; n0 += BN) {
     const int nt = min(BN, p.n_codes - n0);
 
-    // 1. K_hat of the tile: a thread takes four subspaces of one token
-    for (int i = tid; i < BN * (M / 4); i += THREADS) {
+    // 1. K_hat of the tile: a thread takes four subspaces of one token (one
+    // subspace where M % 4 != 0: fewer than four wide subspaces)
+    if (M % 4) {
+      for (int i = tid; i < BN * M; i += THREADS) {
+        const int tok = i % BN, m = i / BN;
+        const int code = tok < nt ? kcg[(long)(n0 + tok) * M + m] : 0;
+        const float* cent = p.kcent + ((long)m * p.Ck + code) * p.dmk;
+        for (int j = 0; j < p.dmk; ++j) KV[(m + j * M) * LDK + tok] = (tok < nt) ? __ldg(cent + j) : 0.f;
+      }
+    }
+    for (int i = tid; i < BN * (M % 4 ? 0 : M / 4); i += THREADS) {
       const int tok = i % BN, mq = i / BN;
       uint32_t w = 0;
       if (tok < nt) w = *reinterpret_cast<const uint32_t*>(kcg + (long)(n0 + tok) * M + mq * 4);

@@ -41,8 +41,10 @@
 // n_codes tokens: with M = M_v = 64 (dm2) or M = M_v = 32 plus 16 + 16 bf16
 // outlier channels (dm4_outlier), both 128 B per token per (b, h). At 32K
 // tokens that is ~4.2 MB per (b, h) and ~33.5 MB per sequence and layer over
-// 8 KV heads, ~10 us at 3.35 TB/s. The f32 FMAs (4 * G * d per token) bound
-// it from below too; chip_smoke.py prints both for the shapes it runs. This
+// 8 KV heads, ~10 us at 3.35 TB/s. The operations bound it from below too:
+// this design's f32 FMAs are 4 * G * d per token, the function's least a
+// q-centroid table of 2 * C * d per query row and side, then M adds per token
+// (decode_row_ops); chip_smoke.py prints both bounds for its shapes. This
 // design is bound by neither: knock-out builds (benchmarks/paged_kernel_ab.py)
 // put ~55 % of its time in the score pass and ~35 % in the value pass, of
 // which the centroid gathers are a fifth and a twentieth; the rest is the
@@ -57,7 +59,9 @@ extern "C" int pq_decode_attention_tile() { return TILE; }
 // residual window (kres/vres, Lt rows, bf16 when res_bf16 else f32).
 // `scores` (bs * nh_k * S * chunk * G f32) and `ml_part` (bs * nh_k * S * G
 // * 2 f32) are scratch. Returns a cudaError_t (0 on success); the caller
-// validates shapes and types.
+// validates shapes and types and chooses the passes' builds: kwide / vwide
+// 1 for the score / value pass that takes any subspace width and count (d_m
+// > 8, or M % 4 != 0), 0 for the d_m <= 8 one.
 extern "C" int pq_decode_attention(
     const void* q, const void* kcodes, const void* vcodes,
     const void* kcent, const void* vcent,
@@ -65,7 +69,8 @@ extern "C" int pq_decode_attention(
     const void* kres, const void* vres,
     void* scores, void* ml_part, void* out_part, void* lse_part, void* out, void* lse,
     int bs, int nh_k, int G, int d, int M, int Ck, int Mv, int Cv, int OK, int OV,
-    int N_max, int n_codes, int S, int chunk, int r, int Lt, int res_bf16, void* stream) {
+    int N_max, int n_codes, int S, int chunk, int r, int Lt, int res_bf16, int kwide,
+    int vwide, void* stream) {
   Params p = {};
   p.q = (const float*)q;
   p.kcodes = (const uint8_t*)kcodes;
@@ -82,6 +87,7 @@ extern "C" int pq_decode_attention(
   p.lse_part = (float*)lse_part;
   p.nh_k = nh_k; p.d = d; p.M = M; p.Ck = Ck; p.dmk = d / M;
   p.Mv = Mv; p.Cv = Cv; p.dmv = d / Mv; p.OK = OK; p.OV = OV;
+  p.kwide = kwide; p.vwide = vwide;
   p.N_max = N_max; p.n_codes = n_codes; p.S = S; p.chunk = chunk;
   p.srow_len = S * chunk;
   return run_passes<false>(p, bs, G, kres, vres, r, nullptr, Lt, res_bf16, (float*)out,

@@ -14,7 +14,7 @@
 //
 // The TPU kernel's augmented matmul (contraction padded to 8, ||c||^2 split
 // into bf16 hi/lo slots) exists for the MXU and is not carried over: at
-// d_m 1-8 this is CUDA-core work, and the scores are the same f32 sums
+// d_m 1-16 this is CUDA-core work, and the scores are the same f32 sums
 // (-0.5 ||c||^2 + x_0 c_0 + ... as a chain of FMAs) in every version.
 //
 // Bound. rows x M x C x (2 d_m + 1) operations against 67 TFLOP/s f32, and
@@ -28,7 +28,9 @@
 // ms at the prefill shape (0.71 ms at d_m = 4, C = 128); the scan alone runs
 // at about three quarters of it (benchmarks/encode_kernel_ab.py knock-outs).
 //
-// Design.
+// Design. The tiled kernel below is built for d_m in {1, 2, 4, 8, 16}; every
+// other width (32, 64, 128, and widths that are not powers of two) takes the
+// generic kernel further down, which the wrapper's route picks.
 // - Max first, locate once. A lane holds T tokens of one subspace and scans
 //   the centroids in tiles of CT: per tile and token it computes CT scores,
 //   takes their max with a tree of FMNMX, and keeps the running best and
@@ -88,8 +90,9 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// centroids per scan tile: d_m FMAs + ~1 + 3 / CT ALU operations per centroid and token
-__host__ __device__ constexpr int ctile(int dm) { return dm <= 2 ? 16 : (dm == 4 ? 8 : 4); }
+// centroids per scan tile: d_m FMAs + ~1 + 3 / CT ALU operations per centroid and token (at
+// d_m = 16 a tile of 2 keeps the scan's tile and tokens in registers)
+__host__ __device__ constexpr int ctile(int dm) { return dm <= 2 ? 16 : (dm == 4 ? 8 : (dm == 8 ? 4 : 2)); }
 // floats of a centroid tile in shared memory: CT centroids, then their -0.5 ||c||^2, padded to
 // an odd number of 8-byte pairs, so that up to 16 tiles start in 16 different bank pairs: the
 // locate step, where each lane reads the tile its token won, then loads without conflicts
@@ -101,8 +104,11 @@ __host__ __device__ constexpr int slices(int dm) { return (GROUP_DIMS / dm) >= N
 
 // padded row of the transposed x tile
 __host__ __device__ constexpr int xld(int tb) { return tb + 1; }
-// elements of x one staging load moves: 16 bytes, 8 for bf16 runs of 4 (d_m = 8, strided)
-__host__ __device__ constexpr int piece(int dm, bool xbf16) { return xbf16 ? (dm == 8 ? 4 : 8) : 4; }
+// elements of x one staging load moves: 16 bytes, or a strided group's run of MG = 32 / d_m
+// consecutive dims where that is shorter (bf16 at d_m = 8, both types at d_m = 16)
+__host__ __device__ constexpr int piece(int dm, bool xbf16) {
+  return (xbf16 ? 8 : 4) < GROUP_DIMS / dm ? (xbf16 ? 8 : 4) : GROUP_DIMS / dm;
+}
 
 template <int DM, int TB>
 static size_t smem_bytes(int Cp) {
@@ -165,8 +171,9 @@ __device__ void stage_x_vec(const EncParams& p, int s, int m0, long row0, float*
   constexpr int MG = GROUP_DIMS / DM, XLD = xld(TB);
   constexpr int W = piece(DM, XBF16);
   constexpr int NQ = GROUP_DIMS / W, RS = THREADS / NQ, KR = TB / RS;
-  using Piece = typename std::conditional<XBF16, typename std::conditional<W == 8, uint4, uint2>::type,
-                                          float4>::type;
+  using Piece = typename std::conditional<
+      XBF16, typename std::conditional<W == 8, uint4, typename std::conditional<W == 4, uint2, unsigned>::type>::type,
+      typename std::conditional<W == 4, float4, float2>::type>::type;
   const int q = threadIdx.x % NQ, t0 = threadIdx.x / NQ, e0 = q * W;
   const int dim = p.strided ? (m0 + e0 % MG + (e0 / MG) * p.M) : (m0 * DM + e0);
   Piece buf[KR];
@@ -193,7 +200,11 @@ __device__ void stage_x_vec(const EncParams& p, int s, int m0, long row0, float*
         v[2 * w + 1] = f.y;
       }
     } else {
-      v[0] = buf[k].x; v[1] = buf[k].y; v[2] = buf[k].z; v[3] = buf[k].w;
+      if constexpr (W == 4) {
+        v[0] = buf[k].x; v[1] = buf[k].y; v[2] = buf[k].z; v[3] = buf[k].w;
+      } else {
+        v[0] = buf[k].x; v[1] = buf[k].y;
+      }
       if (p.fast) {
 #pragma unroll
         for (int w = 0; w < W; ++w) v[w] = round_bf16(v[w]);
@@ -317,6 +328,8 @@ __device__ __forceinline__ void copy_codes(uint8_t* dst, const uint8_t* src) {
       reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
   } else if constexpr (N == 8) {
     *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
   } else {
     *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
   }
@@ -445,15 +458,126 @@ static cudaError_t run(EncParams& p, int S, cudaStream_t st) {
   return launch<DM, TB_MAX>(p, big, st);
 }
 
+// The generic width: any d_m, for the geometries the tiled kernel is not
+// built for (d_m 32, 64 and 128, where a group of 32 dims holds less than a
+// subspace, and the widths that are not powers of two). A block owns one
+// (bank, subspace) and walks row tiles of GT rows, a thread per row: the
+// subspace's codebook sits in shared memory transposed (cs[j][c], with its
+// -0.5 ||c||^2 beside it), the tile's x transposed (xs[j][t]), and a thread
+// scores four centroids at a time with the same FMA chain as the tiled
+// kernel (-0.5 ||c||^2, then x_0 c_0, x_1 c_1, ...), keeping the first
+// centroid that beats the running best: the same codes, ties to the lowest
+// index. Slow by design (two shared loads per four FMAs, a block per
+// subspace); its time is in PERF.md.
+#define GT 128  // rows per tile of the generic kernel
+
+static size_t generic_smem(int Cp, int dm) {
+  return sizeof(float) * ((size_t)Cp * dm + Cp + (size_t)dm * GT);
+}
+
+__global__ void __launch_bounds__(GT) pq_encode_generic_kernel(EncParams p, int dm) {
+  extern __shared__ __align__(16) float gsm[];
+  const int Cp = p.Cp;
+  float* cs = gsm;              // dm * Cp: cs[j * Cp + c]
+  float* nh = cs + dm * Cp;     // Cp
+  float* xs = nh + Cp;          // dm * GT: xs[j * GT + t]
+  const int m = blockIdx.y, s = blockIdx.z, t = threadIdx.x;
+  const float* src = p.cents + ((long)s * p.M + m) * p.C * dm;
+  for (int i = t; i < Cp * dm; i += GT) {
+    const int c = i / dm, j = i - c * dm;
+    float v = 0.f;
+    if (c < p.C) {
+      v = src[(long)c * dm + j];
+      if (p.fast) v = round_bf16(v);
+    }
+    cs[j * Cp + c] = v;
+  }
+  __syncthreads();
+  for (int c = t; c < Cp; c += GT) {
+    float sq = 0.f;
+    for (int j = 0; j < dm; ++j) {
+      const float v = cs[j * Cp + c];
+      sq = __fadd_rn(sq, __fmul_rn(v, v));
+    }
+    nh[c] = c < p.C ? -(0.5f * sq) : -INFINITY;
+  }
+  uint8_t* out = p.codes + (long)s * p.R * p.M;
+  for (long tile = blockIdx.x; tile * GT < p.R; tile += gridDim.x) {
+    const long row0 = tile * GT;
+    __syncthreads();  // nh is written, and the previous tile's x is read
+    for (int i = t; i < GT * dm; i += GT) {
+      const int tt = i / dm, j = i - tt * dm;
+      const long r = row0 + tt;
+      float v = 0.f;
+      if (r < p.R) {
+        const int dim = p.strided ? (m + j * p.M) : (m * dm + j);
+        const long off = row_offset(p, s, (unsigned)r) + dim;
+        if (p.x_bf16) {
+          v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p.x)[off]);
+        } else {
+          v = reinterpret_cast<const float*>(p.x)[off];
+          if (p.fast) v = round_bf16(v);
+        }
+      }
+      xs[j * GT + tt] = v;
+    }
+    __syncthreads();
+    float best = -INFINITY;
+    int idx = 0;
+    for (int c0 = 0; c0 < Cp; c0 += 4) {
+      float a0 = nh[c0], a1 = nh[c0 + 1], a2 = nh[c0 + 2], a3 = nh[c0 + 3];
+      for (int j = 0; j < dm; ++j) {
+        const float xv = xs[j * GT + t];
+        const float4 cv = *reinterpret_cast<const float4*>(cs + j * Cp + c0);
+        a0 = fmaf(xv, cv.x, a0);
+        a1 = fmaf(xv, cv.y, a1);
+        a2 = fmaf(xv, cv.z, a2);
+        a3 = fmaf(xv, cv.w, a3);
+      }
+      if (a0 > best) { best = a0; idx = c0; }
+      if (a1 > best) { best = a1; idx = c0 + 1; }
+      if (a2 > best) { best = a2; idx = c0 + 2; }
+      if (a3 > best) { best = a3; idx = c0 + 3; }
+    }
+    const long r = row0 + t;
+    if (r < p.R) out[r * p.M + m] = (uint8_t)idx;
+  }
+}
+
+static cudaError_t run_generic(EncParams& p, int S, int dm, cudaStream_t st) {
+  static size_t attr_set = 0;
+  p.Cp = (p.C + 3) / 4 * 4;
+  const size_t smem = generic_smem(p.Cp, dm);
+  if (smem > 48 * 1024 && smem > attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(pq_encode_generic_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    attr_set = smem;
+  }
+  int dev, n_sm;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long tiles = (p.R + GT - 1) / GT;
+  const long per = (long)p.M * S;  // blocks a row tile spreads over
+  long gx = (4L * n_sm + per - 1) / per;  // about four blocks per SM in all
+  if (gx > tiles) gx = tiles;
+  if (gx < 1) gx = 1;
+  pq_encode_generic_kernel<<<dim3((unsigned)gx, (unsigned)p.M, (unsigned)S), GT, smem, st>>>(p, dm);
+  return cudaGetLastError();
+}
+
 extern "C" int pq_encode_tile() { return TB_MAX; }
 
 // x: S banks of n0 * n1 * n2 rows of d = M * d_m elements (bf16 when x_bf16,
 // else f32) at element strides (sS, s0, s1, s2), last dim dense. cents
 // (S, M, C, d_m) f32 contiguous; codes (S, n0 * n1 * n2, M) uint8 contiguous.
-// Returns a cudaError_t (0 on success); the caller validates shapes and types.
+// generic = 1 takes the generic-width kernel, else the tiled kernel built for
+// d_m in {1, 2, 4, 8, 16} (the wrapper's encode_route decides). Returns a
+// cudaError_t (0 on success); the caller validates shapes and types.
 extern "C" int pq_encode(const void* x, const void* cents, void* codes, int S, long n0, long n1,
                          long n2, long sS, long s0, long s1, long s2, int M, int C, int d_m,
-                         int x_bf16, int strided, int fast, void* stream) {
+                         int x_bf16, int strided, int fast, int generic, void* stream) {
   EncParams p;
   p.x = x;
   p.cents = (const float*)cents;
@@ -466,11 +590,16 @@ extern "C" int pq_encode(const void* x, const void* cents, void* codes, int S, l
   p.M = M; p.C = C;
   p.x_bf16 = x_bf16; p.strided = strided; p.fast = fast;
   cudaStream_t st = (cudaStream_t)stream;
+  if (generic) {
+    if (d_m < 1 || generic_smem((C + 3) / 4 * 4, d_m) > 227 * 1024) return (int)cudaErrorInvalidValue;
+    return (int)run_generic(p, S, d_m, st);
+  }
   switch (d_m) {
     case 1: return (int)run<1>(p, S, st);
     case 2: return (int)run<2>(p, S, st);
     case 4: return (int)run<4>(p, S, st);
     case 8: return (int)run<8>(p, S, st);
+    case 16: return (int)run<16>(p, S, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

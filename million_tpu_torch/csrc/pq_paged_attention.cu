@@ -55,7 +55,9 @@ extern "C" int pq_paged_attention_tile() { return TILE; }
 // rows when kres / vres (bs, nh_k, Lt, d; bf16 when res_bf16 else f32) are
 // given, else all three are null. `scores` (bs * nh_k * n_bound * G f32) and
 // `ml_part` (bs * nh_k * S * G * 2 f32) are scratch. Returns a cudaError_t
-// (0 on success); the caller validates shapes and types.
+// (0 on success); the caller validates shapes and types and chooses the
+// passes' builds: kwide / vwide 1 for the score / value pass that takes any
+// subspace width and count (d_m > 8, or M % 4 != 0), 0 for the d_m <= 8 one.
 extern "C" int pq_paged_attention(
     const void* q, const void* kpool, const void* vpool,
     const void* kcent, const void* vcent,
@@ -64,7 +66,8 @@ extern "C" int pq_paged_attention(
     const void* page_table, const void* seq_n_codes, const void* seq_r,
     void* scores, void* ml_part, void* out_part, void* lse_part, void* out, void* lse,
     int bs, int nh_k, int G, int d, int M, int Ck, int Mv, int Cv, int OK, int OV,
-    int P_max, int page_size, int n_bound, int S, int fixed_chunk, int Lt, int res_bf16,
+    int P_max, int page_size, int n_bound, int S, int fixed_chunk, int Lt, int res_bf16, int kwide,
+    int vwide,
     void* stream) {
   if (page_size % TILE || n_bound > P_max * page_size) return (int)cudaErrorInvalidValue;
   Params p = {};
@@ -83,6 +86,7 @@ extern "C" int pq_paged_attention(
   p.lse_part = (float*)lse_part;
   p.nh_k = nh_k; p.d = d; p.M = M; p.Ck = Ck; p.dmk = d / M;
   p.Mv = Mv; p.Cv = Cv; p.dmv = d / Mv; p.OK = OK; p.OV = OV;
+  p.kwide = kwide; p.vwide = vwide;
   p.S = S; p.srow_len = n_bound;
   p.page_table = (const int*)page_table;
   p.seq_n_codes = (const int*)seq_n_codes;

@@ -86,7 +86,8 @@ def _history_partial(q, key_codes, value_codes, kcent, vcent, n_prev: int, scale
     out, lse = pq_chunk_attention_plain(
         group_rows(q, key_codes.shape[1], scale), key_codes, value_codes, kcent, vcent,
         n_prev, hist_block=hist_block, precision=history_precision(
-            q, value_codes, outliers.get("k_outliers"), outliers.get("v_outliers")), **outliers)
+            q, value_codes, outliers.get("k_outliers"), outliers.get("v_outliers"), key_codes),
+        **outliers)
     return ungroup_rows(out, lse, q.shape[1])
 
 

@@ -14,11 +14,15 @@ splits and LSE-merge the per-split partials, so the plain version is the
 kernel's arithmetic in PyTorch. `pq_codes_attention_stacked` runs the plain
 version for CPU tensors, launches the kernel for CUDA tensors, and raises
 otherwise; it counts kernel launches in `pq_codes_attention_stacked.launches`.
+`decode_route` decides which build of the passes computes a geometry (this
+kernel's and the paged kernel's): d_m <= 8 with M % 4 == 0, or any other
+subspace width and count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -35,7 +39,7 @@ from million_tpu_torch.pq.ops import pq_decode
 
 TILE = 256  # tokens per tile (TILE in the .cu source)
 MAX_GROUP = 8
-MAX_DM = 8
+NARROW_MAX_DM = 8  # the widest subspace of the passes' d_m <= 8 builds
 SM_COUNT_DEFAULT = 132  # H100 SXM; the CPU path plans splits as the card would
 
 _lib = None
@@ -50,7 +54,7 @@ def _library():
         lib = build("pq_decode_attention").lib
         lib.pq_decode_attention.restype = ctypes.c_int
         lib.pq_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
         )
         lib.pq_decode_attention_tile.restype = ctypes.c_int
         if lib.pq_decode_attention_tile() != TILE:
@@ -62,6 +66,57 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeRoute:
+    """The builds of the decode passes (csrc/pq_attention_passes.cuh) that
+    compute one geometry, shared by B1 / B2 and the paged B4-B6.
+
+    score: "narrow" (d_m <= 8 and M % 4 == 0: every main path) or "wide"
+      (any d_m and M: code rows read byte by byte where M % 4 != 0).
+    value: "dm8" (one column per subspace, 8 registers a query row; d_m <= 8
+      and M_v % 4 == 0) or "dm16" (a column is a slice of `slice_width` dims
+      of a subspace, `slices` of them: 16 for G <= 3, else 8)."""
+    score: str
+    value: str
+    slice_width: int
+    slices: int
+
+    @property
+    def kwide(self) -> int:
+        return int(self.score == "wide")
+
+    @property
+    def vwide(self) -> int:
+        return int(self.value == "dm16")
+
+    @property
+    def name(self) -> str:
+        return f"score[{self.score}]+value[{self.value}x{self.slices}]"
+
+
+def decode_route(d: int, M: int, M_v: int, C_k: int, C_v: int, G: int, OK: int = 0,
+                 OV: int = 0) -> DecodeRoute:
+    """Which build of the decode passes computes this geometry on the card:
+    the one place that decides it, needing no card. Raises ValueError for
+    what no build takes (C > 256, G > 8, d % 4, M_v subspace slices and
+    exact V channels over one tile of columns)."""
+    for m, c in ((M, C_k), (M_v, C_v)):
+        if m < 1 or d % m or not 1 <= c <= 256:
+            raise ValueError(f"unsupported geometry M={m} C={c} for d={d}")
+    if not 1 <= G <= MAX_GROUP or d % 4:
+        raise ValueError(f"kernel needs 1 <= G <= {MAX_GROUP} and d % 4 == 0, got G={G}, d={d}")
+    narrow = lambda m: d // m <= NARROW_MAX_DM and m % 4 == 0  # noqa: E731
+    score = "narrow" if narrow(M) else "wide"
+    if narrow(M_v):
+        value, width, slices = "dm8", NARROW_MAX_DM, 1
+    else:
+        width = 16 if G <= 3 else 8
+        value, slices = "dm16", -(-(d // M_v) // width)
+    if M_v * slices + OV > TILE:
+        raise ValueError(f"kernel needs M_v * slices + OV <= {TILE} (got {M_v} x {slices} + {OV})")
+    return DecodeRoute(score, value, width, slices)
 
 
 def plan_splits(n_codes: int, pairs: int, n_sm: int = SM_COUNT_DEFAULT,
@@ -159,11 +214,9 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, layer, n_codes,
         raise ValueError("q, key_codes and value_codes disagree on (bs, nh_k, N_max)")
     if key_cents.shape[1] != M or value_cents.shape[1] != M_v:
         raise ValueError("codebook subspace counts differ from the code arenas'")
-    for m, c, cents in ((M, C_k, key_cents), (M_v, C_v, value_cents)):
-        if d % m or d // m > MAX_DM or cents.shape[3] != d // m or c > 256:
-            raise ValueError(f"unsupported geometry M={m} C={c} for d={d}")
-    if G > MAX_GROUP or d % 4 or M % 4:
-        raise ValueError(f"kernel needs G <= {MAX_GROUP}, d % 4 == 0, M % 4 == 0")
+    for m, cents in ((M, key_cents), (M_v, value_cents)):
+        if d % m or cents.shape[3] != d // m:
+            raise ValueError(f"codebook width {cents.shape[3]} for M={m} at d={d}")
     if not 0 <= n_codes <= N or not 0 <= layer < L:
         raise ValueError(f"n_codes={n_codes} / layer={layer} out of range")
     OK = OV = 0
@@ -179,8 +232,7 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, layer, n_codes,
         _check(v_oidx, "v_oidx", torch.int32, 2, dev)
         OV = v_outliers.shape[-1]
         vo_p, vidx_p = v_outliers[layer].data_ptr(), v_oidx[layer].data_ptr()
-    if M_v + OV > TILE:
-        raise ValueError(f"kernel needs M_v + OV <= {TILE} (got {M_v} + {OV})")
+    route = decode_route(d, M, M_v, C_k, C_v, G, OK, OV)
     Lt, res_bf16 = 0, 0
     kr_p = vr_p = null
     if k_residual is not None:
@@ -212,7 +264,7 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, layer, n_codes,
         ko_p, vo_p, kidx_p, vidx_p, kr_p, vr_p, scores.data_ptr(), ml_part.data_ptr(),
         out_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(),
         bs, nh_k, G, d, M, C_k, M_v, C_v, OK, OV, N, n_codes, S, chunk, r, Lt, res_bf16,
-        torch.cuda.current_stream(dev).cuda_stream,
+        route.kwide, route.vwide, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"pq_decode_attention launch failed: CUDA error {err}")
@@ -303,8 +355,26 @@ def decode_bytes(bs: int, nh_k: int, n_codes: int, M: int, M_v: int, OK: int = 0
     return bs * nh_k * n_codes * (M + M_v + 2 * (OK + OV))
 
 
-def decode_flops(bs: int, nh_k: int, G: int, d: int, n_codes: int, OK: int = 0) -> int:
-    """f32 FMAs of one call counted as 2 operations: the score dot over d
-    and OK outlier channels and the P @ V product over d, per query row."""
-    return 2 * bs * nh_k * G * n_codes * (2 * d + OK)
+def decode_row_ops(n: int, d: int, OK: int = 0, OV: int = 0, M: Optional[int] = None,
+                   M_v: Optional[int] = None, C: Optional[int] = None,
+                   C_v: Optional[int] = None) -> int:
+    """Operations for one query row over n tokens, an f32 FMA counted as 2:
+    the score dot over d and OK exact channels and the P @ V product over d.
+    Given a side's M and C, that side counts the fewer of this direct decode
+    and the table route the function equally allows: q against every
+    centroid (the value side: the weights summed per centroid, then the
+    centroids scaled), 2 C d, plus one add per subspace and token, the
+    value side's OV exact channels still 2 a token."""
+    key = val = 2 * n * d
+    if M is not None:
+        key = min(key, 2 * C * d + n * M)
+    if M_v is not None:
+        val = min(val, 2 * C_v * (d - OV) + n * (M_v + 2 * OV))
+    return key + 2 * n * OK + val
+
+
+def decode_flops(bs: int, nh_k: int, G: int, d: int, n_codes: int, OK: int = 0, **tables) -> int:
+    """Operations of one call: decode_row_ops for each query row (tables:
+    OV, M, M_v, C, C_v, as there)."""
+    return bs * nh_k * G * decode_row_ops(n_codes, d, OK, **tables)
 

@@ -187,8 +187,8 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, n_codes,
     for m, c, cents in ((M, C_k, key_cents), (M_v, C_v, value_cents)):
         if d % m or cents.shape[2] != d // m or c > 256:
             raise ValueError(f"unsupported geometry M={m} C={c} for d={d}")
-    if d > MAX_D or d % 4 or M % 4:
-        raise ValueError(f"kernel needs d <= {MAX_D}, d % 4 == 0 and M % 4 == 0")
+    if d > MAX_D or d % 4:
+        raise ValueError(f"kernel needs d <= {MAX_D} and d % 4 == 0")
     if not 0 <= n_codes <= N:
         raise ValueError(f"n_codes={n_codes} outside the arena of {N} tokens")
     OK = OV = 0
@@ -209,10 +209,10 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, n_codes,
             raise ValueError("v_outliers / voidx shapes")
         vo_p, vidx_p = v_outliers.data_ptr(), voidx.data_ptr()
     mma = int(precision == "bf16")
-    if mma and not mma_geometry(d, M_v, OK, OV):
+    if mma and not mma_geometry(d, M_v, OK, OV, M):
         raise ValueError(f"the bf16 kernel is built for d in {MMA_HEAD_DIMS}, even OK <= "
-                         f"{MMA_MAX_OK}, even OV <= {MMA_MAX_OV} and M_v % 4 == 0, got d={d}, "
-                         f"OK={OK}, OV={OV}, M_v={M_v}")
+                         f"{MMA_MAX_OK}, even OV <= {MMA_MAX_OV} and M % 4 == M_v % 4 == 0, "
+                         f"got d={d}, OK={OK}, OV={OV}, M={M}, M_v={M_v}")
     lib = _library()
     need = lib.pq_chunk_attention_smem(d, OK, C_k, C_v, mma, M, M_v, OV)
     if mma:
@@ -283,27 +283,33 @@ def pq_chunk_attention(
 pq_chunk_attention.launches = 0
 
 
-def mma_geometry(d: int, M_v: int, OK: int = 0, OV: int = 0) -> bool:
+def mma_geometry(d: int, M_v: int, OK: int = 0, OV: int = 0, M: Optional[int] = None) -> bool:
     """Whether the tensor-core version is built for this geometry: head dim
-    d, M_v value subspaces, OK and OV exact channels."""
+    d, M_v value subspaces (and M key subspaces, when given: its staged code
+    rows are copied in 4-byte pieces), OK and OV exact channels. Any d_m its
+    bf16 codebooks hold is decoded (d_m 16 and 32 at d = 128 included)."""
     return (d in MMA_HEAD_DIMS and OK <= MMA_MAX_OK and OV <= MMA_MAX_OV and OK % 2 == 0
-            and OV % 2 == 0 and M_v % 4 == 0)
+            and OV % 2 == 0 and M_v % 4 == 0 and (M is None or M % 4 == 0))
 
 
 def history_precision(q: torch.Tensor, value_codes: Optional[torch.Tensor] = None,
                       k_outliers: Optional[torch.Tensor] = None,
-                      v_outliers: Optional[torch.Tensor] = None) -> str:
+                      v_outliers: Optional[torch.Tensor] = None,
+                      key_codes: Optional[torch.Tensor] = None) -> str:
     """The precision of the history partial for a model whose queries are q
-    (..., d), over an arena whose value codes are (..., M_v) (not checked when
-    None) with these exact-channel slabs (..., OK) and (..., OV): 16-bit
-    models take the tensor-core product where it is built for the geometry
-    (mma_geometry), f32 models and the other geometries the f32 one, on the
-    card and in the plain version alike."""
+    (..., d), over an arena whose value codes are (..., M_v) and key codes
+    (..., M) (not checked when None) with these exact-channel slabs (..., OK)
+    and (..., OV): 16-bit models take the tensor-core product where it is
+    built for the geometry (mma_geometry), f32 models and the other
+    geometries (fewer than four wide subspaces a side, more than 16 exact
+    channels) the f32 one, on the card and in the plain version alike. This
+    is B3's route: every geometry goes to one of its two kernels."""
     if q.dtype not in (torch.bfloat16, torch.float16):
         return "f32"
     M_v = 4 if value_codes is None else value_codes.shape[-1]
+    M = None if key_codes is None else key_codes.shape[-1]
     OK, OV = (0 if t is None else t.shape[-1] for t in (k_outliers, v_outliers))
-    return "bf16" if mma_geometry(q.shape[-1], M_v, OK, OV) else "f32"
+    return "bf16" if mma_geometry(q.shape[-1], M_v, OK, OV, M) else "f32"
 
 
 def group_rows(q: torch.Tensor, nh_k: int, scale: float) -> torch.Tensor:
@@ -354,7 +360,7 @@ def pq_chunk_history_attention(
         group_rows(q, key_codes.shape[1], scale), key_codes, value_codes, key_cents,
         value_cents, n_prev, koidx=koidx, k_outliers=k_outliers, voidx=voidx,
         v_outliers=v_outliers,
-        precision=precision or history_precision(q, value_codes, k_outliers, v_outliers),
+        precision=precision or history_precision(q, value_codes, k_outliers, v_outliers, key_codes),
         hist_block=hist_block)
     return ungroup_rows(out, lse, nh)
 

@@ -10,8 +10,10 @@ writes the (rows, M, C) distances; the plain version (pq/ops.pq_encode, a
 batched GEMM plus argmin over row chunks) does.
 
 `pq_encode_fused_stacked` runs the plain version for CPU tensors, launches
-the kernel for CUDA tensors, and raises otherwise; it counts kernel launches
-in `pq_encode_fused_stacked.launches`.
+a kernel for CUDA tensors, and raises otherwise; it counts kernel launches
+in `pq_encode_fused_stacked.launches`. On the card `encode_route` picks the
+kernel: the tiled one built for d_m in KERNEL_DM, or the generic one for
+every other width (32, 64, 128 and widths that are not powers of two).
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ from million_tpu_torch.pq.ops import pq_encode
 
 TILE = 256  # the larger of the kernel's two row tiles (TB_MAX in the .cu source)
 MAX_ROWS = (1 << 31) - 1  # rows per bank the kernel indexes in 32 bits
-KERNEL_DM = (1, 2, 4, 8)  # subspace widths the kernel is built for
+KERNEL_DM = (1, 2, 4, 8, 16)  # subspace widths the tiled kernel is built for
+GENERIC_SMEM_MAX = 232448  # the generic kernel's codebook, norms and x tile must fit (sm_90)
+GENERIC_ROWS = 128  # rows of the generic kernel's tile (GT in the .cu source)
 PLAIN_MAX_DIST = 1 << 28  # f32 distances the plain version holds at a time
 
 _lib = None
@@ -41,13 +45,29 @@ def _library():
         lib.pq_encode.restype = ctypes.c_int
         lib.pq_encode.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_long] * 7
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         lib.pq_encode_tile.restype = ctypes.c_int
         if lib.pq_encode_tile() != TILE:
             raise RuntimeError("TILE differs between the Python wrapper and the CUDA source")
         _lib = lib
     return _lib
+
+
+def encode_route(d_m: int, C: int) -> str:
+    """Which kernel of csrc/pq_encode.cu encodes this geometry on the card:
+    "tiled" (the max-first kernel, built for d_m in KERNEL_DM) or "generic"
+    (any width whose codebook, norms and a 128-row x tile fit in shared
+    memory: d_m up to 128 at C = 256). The one place that decides it, needing
+    no card; raises ValueError for what neither takes."""
+    if not 1 <= C <= 256 or d_m < 1:
+        raise ValueError(f"unsupported encode geometry C={C} d_m={d_m}")
+    if d_m in KERNEL_DM:
+        return "tiled"
+    Cp = -(-C // 4) * 4
+    if 4 * (Cp * d_m + Cp + d_m * GENERIC_ROWS) > GENERIC_SMEM_MAX:
+        raise ValueError(f"d_m={d_m} at C={C} does not fit the generic kernel's shared memory")
+    return "generic"
 
 
 def pq_encode_fused_plain(
@@ -105,8 +125,9 @@ def _launch(x, cents, layout, precision):
         raise ValueError(f"x banks {tuple(x.shape)} != cents banks {S}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    if d != M * d_m or d_m not in KERNEL_DM or not 1 <= C <= 256:
+    if d != M * d_m:
         raise ValueError(f"unsupported geometry d={d} M={M} C={C} d_m={d_m}")
+    route = encode_route(d_m, C)  # raises for what no kernel takes
     codes = torch.empty((*x.shape[:-1], M), dtype=torch.uint8, device=dev)
     if codes.numel() == 0:
         return codes, False
@@ -123,7 +144,7 @@ def _launch(x, cents, layout, precision):
     err = _library().pq_encode(
         x.data_ptr(), cents.data_ptr(), codes.data_ptr(), S, n0, n1, n2,
         x.stride(0), s0, s1, s2, M, C, d_m, int(x.dtype == torch.bfloat16),
-        int(layout == "strided"), int(precision == "fast"),
+        int(layout == "strided"), int(precision == "fast"), int(route == "generic"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -139,7 +160,8 @@ def pq_encode_fused_stacked(
 ) -> torch.Tensor:
     """Encode S banks in one launch -> (S, ..., M) uint8. The flush uses
     S = num_layers (every layer's residual window, one launch per side),
-    prefill S = 1. x may be a strided view with a dense last dim."""
+    prefill S = 1. x may be a strided view with a dense last dim. On the
+    card encode_route picks the kernel."""
     if x.device.type == "cpu":
         return pq_encode_fused_plain(x, cents, layout, precision)
     if x.device.type != "cuda":

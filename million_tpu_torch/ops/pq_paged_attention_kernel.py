@@ -33,12 +33,12 @@ from typing import Optional, Tuple
 import torch
 
 from million_tpu_torch.ops.pq_attention_kernel import (
-    MAX_DM,
-    MAX_GROUP,
     SM_COUNT_DEFAULT,
     TILE,
     _check,
     _sm_count,
+    decode_route,
+    decode_row_ops,
     pq_codes_attention_plain,
 )
 
@@ -61,7 +61,7 @@ def _library():
         lib = build("pq_paged_attention").lib
         lib.pq_paged_attention.restype = ctypes.c_int
         lib.pq_paged_attention.argtypes = (
-            [ctypes.c_void_p] * 20 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 20 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
         )
         lib.pq_paged_attention_tile.restype = ctypes.c_int
         if lib.pq_paged_attention_tile() != TILE:
@@ -186,11 +186,9 @@ def _launch(q, key_pool, value_pool, key_cents, value_cents, layer, page_table, 
                          f"page), got {page_size}")
     if key_cents.shape[1] != M or value_cents.shape[1] != M_v:
         raise ValueError("codebook subspace counts differ from the pools'")
-    for m, c, cents in ((M, C_k, key_cents), (M_v, C_v, value_cents)):
-        if d % m or d // m > MAX_DM or cents.shape[3] != d // m or c > 256:
-            raise ValueError(f"unsupported geometry M={m} C={c} for d={d}")
-    if G > MAX_GROUP or d % 4 or M % 4:
-        raise ValueError(f"kernel needs G <= {MAX_GROUP}, d % 4 == 0, M % 4 == 0")
+    for m, cents in ((M, key_cents), (M_v, value_cents)):
+        if d % m or cents.shape[3] != d // m:
+            raise ValueError(f"codebook width {cents.shape[3]} for M={m} at d={d}")
     if not 0 <= layer < L:
         raise ValueError(f"layer={layer} out of range")
     if kpp is not None and kpp < 1:
@@ -213,8 +211,7 @@ def _launch(q, key_pool, value_pool, key_cents, value_cents, layer, page_table, 
         if v_outliers.shape[:4] != key_pool.shape[:4]:
             raise ValueError("v_outliers must be a pool beside value_pool")
         vo_p, vidx_p = v_outliers[layer].data_ptr(), v_oidx[layer].data_ptr()
-    if M_v + OV > TILE:
-        raise ValueError(f"kernel needs M_v + OV <= {TILE} (got {M_v} + {OV})")
+    route = decode_route(d, M, M_v, C_k, C_v, G, OK, OV)
     Lt, res_bf16 = 0, 0
     kr_p = vr_p = r_p = null
     if k_residual is not None:
@@ -247,7 +244,7 @@ def _launch(q, key_pool, value_pool, key_cents, value_cents, layer, page_table, 
         scores.data_ptr(), ml_part.data_ptr(), out_part.data_ptr(), lse_part.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
         S_seq, nh_k, G, d, M, C_k, M_v, C_v, OK, OV, page_table.shape[1], page_size, bound, S,
-        fixed, Lt, res_bf16, torch.cuda.current_stream(dev).cuda_stream,
+        fixed, Lt, res_bf16, route.kwide, route.vwide, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"pq_paged_attention launch failed: CUDA error {err}")
@@ -346,8 +343,7 @@ def paged_bytes(n_codes, nh_k: int, M: int, M_v: int, OK: int = 0, OV: int = 0) 
     return sum(int(n) for n in n_codes) * nh_k * (M + M_v + 2 * (OK + OV))
 
 
-def paged_flops(n_codes, nh_k: int, G: int, d: int, OK: int = 0) -> int:
-    """f32 FMAs of one call counted as 2 operations: the score dot over d and
-    OK outlier channels and the P @ V product over d, per query row and live
-    token."""
-    return 2 * sum(int(n) for n in n_codes) * nh_k * G * (2 * d + OK)
+def paged_flops(n_codes, nh_k: int, G: int, d: int, OK: int = 0, **tables) -> int:
+    """Operations of one call: decode_row_ops over each sequence's own live
+    tokens, for each query row (tables: OV, M, M_v, C, C_v, as there)."""
+    return nh_k * G * sum(decode_row_ops(int(n), d, OK, **tables) for n in n_codes)

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from million_tpu_torch.ops.pq_encode_kernel import KERNEL_DM, pq_encode_fused
+from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused
 from million_tpu_torch.pq.ops import pq_decode, pq_encode, subspace_view
 
 INIT_CAP = 1 << 17  # k-means++ draws from at most this many strided points
@@ -61,9 +61,7 @@ def assign(xs: torch.Tensor, cents: torch.Tensor, chunk_n: int = 0,
     if C > 256:
         raise NotImplementedError(
             "codebooks with C > 256 (wide int16 codes) are a later slice of the port")
-    if use_kernel and xs.device.type == "cuda":
-        if d_m not in KERNEL_DM:
-            raise NotImplementedError(f"the encode kernel takes d_m in {KERNEL_DM}, not {d_m}")
+    if use_kernel and xs.device.type == "cuda":  # every d_m: the tiled or the generic kernel
         return pq_encode_fused(_rows(xs), cents, "contiguous", precision="exact")
     return _assign(xs, cents, chunk_n)
 

@@ -25,8 +25,9 @@ the (k, S) tokens to pinned host memory behind an event; the host reads them
 `pipeline_depth` steps later. The reference fuses the k steps into one XLA
 program; here they are a Python loop of k un-synced steps.
 
-Not in this slice: the mesh-backed ShardedScheduler (`mesh` raises
-NotImplementedError) and saving and resuming a scheduler's state.
+A live scheduler saves to disk and resumes with runtime/checkpoint.py
+(save_session / load_session). Not in this slice: the mesh-backed
+ShardedScheduler (`mesh` raises NotImplementedError).
 """
 
 from __future__ import annotations
