@@ -7,6 +7,7 @@
     python3 chip_smoke.py --c9-only       # the build, then fault C.9's phases alone, no result line
     python3 chip_smoke.py --sessions-only # the build, then the long-context, mixed-serving and
                                           # checkpoint phases alone, no result line
+    python3 chip_smoke.py --wide-only     # the build, then fault C.10's wide phase alone, no result line
 
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
@@ -129,9 +130,25 @@ result line:
        (final inertias within 1e-4); one teacher-forced decode with the
        trained dm2 tables and one with the rotations, kernel against the
        plain oracle;
+     - fault C.10's wide phase (codebooks wider than 256, int16 codes): B7's
+       wide build against its plain version at the prefill shape for dm2 at
+       C = 512, 1024 and 4096 and M = 32 at C = 4096 (agreement, MSE,
+       integer inputs; timed beside its bound, the plain version and torch's
+       baddbmm + argmin), at the flush shape and at d_m 1, 8, 16 and 32 on a
+       small shape; the Lloyd steps kernel against plain at M = 64, C = 1024
+       (262,144 rows) and M = 32, C = 4096, with the k-means++ init's time;
+       llama-3.2-3b at dm2, C = 1024: a flat generate (bs 1, 4,096-token
+       prompt, 64 new tokens, Lt = 32, F = 16 flushes) on the plain attention
+       route an int16 arena takes, teacher-forced against an all-plain run,
+       and a chunked one (2 x 2,048, the plain history); the ladder's wide
+       rungs (dm2 at nbits 9-12, M = d/4 at nbits 8-12) on lm_l_v1, each
+       rung's Lloyd steps and prefill encodes also held against the plain
+       version at their own shapes, and quality_bench at its defaults; the
+       pipeline at pq.nbits=10 with its own Lloyd steps held the same way;
   6. a JSON line of the kernels (with [dm16] entries: fault C.9's d_m = 16
-     builds, timed in its kernel phase and launched by its paths), then the
-     card line, then the result line.
+     builds, timed in its kernel phase and launched by its paths, and
+     pq_encode[wide_*] entries: B7's wide build, launched by the wide
+     phase's drives), then the card line, then the result line.
 It needs no network and starts no process but nvidia-smi and nvcc.
 """
 
@@ -161,6 +178,9 @@ RESIDUAL_ROWS = 97  # kernel phase: live rows of the 128-row residual window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+# a "fast" encode rounds x and the centroids to bf16 and sums in f32, where bf16 products are exact:
+# bf16 work, bounded at the tensor cores' peak; an "exact" one (the Lloyd assignment) is f32 work
+FAST_ENCODE_OPS_PER_S = BF16_OPS_PER_S
 ENCODE_AGREE, ENCODE_MSE_RTOL = 0.999, 1e-4  # kernel vs plain: ties may flip on summation order
 KERNEL_TOL = 1e-3  # f32 decode kernel vs f32 plain version: only summation order differs
 # the paged kernel vs its plain version (f32, the same splits, only summation order differs):
@@ -217,7 +237,15 @@ C9_GEOMETRIES = {
     "dm16_outlier_c128": dict(M=8, C=128, O=16),
 }
 C9_GENERIC = {"dm32": dict(M=4, C=256, O=0)}
-ALL_GEOMETRIES = {**GEOMETRIES, **C9_GEOMETRIES, **C9_GENERIC}
+# fault C.10: codebooks wider than 256 (int16 codes) through B7's wide build, at the prefill shape;
+# the model paths run dm2 at C = 1024 (nbits 10)
+WIDE_GEOMETRIES = {
+    "wide_dm2_c512": dict(M=64, C=512, O=0),
+    "wide_dm2_c1024": dict(M=64, C=1024, O=0),
+    "wide_dm2_c4096": dict(M=64, C=4096, O=0),
+    "wide_dm4_c4096": dict(M=32, C=4096, O=0),
+}
+ALL_GEOMETRIES = {**GEOMETRIES, **C9_GEOMETRIES, **C9_GENERIC, **WIDE_GEOMETRIES}
 C9_PROMPT, C9_NEW_TOKENS = 4096, 160  # the d_m = 16 flat generate: bs = 1, window flushes
 # the target-set sweep's B3 limits at its short history (1,000 tokens, so a weight is larger than at
 # the phases' 28,672): those of the repo's small-shape kernel tests, tests/test_torch_chunk_attention.py
@@ -266,6 +294,64 @@ PIPE_CHECK_PROMPT = 4096  # prompt of the teacher-forced checks
 # from one k-means++ init (near-ties may split the other way, index_add_ sums in another order), and
 # the dm2 perplexity with the prefill encode through the plain version ("fast" ties may flip)
 Q_INERTIA_RTOL, Q_PPL_RTOL = 1e-4, 1e-3
+
+
+# the wide phase: B7's wide build at d_m 1, 8, 16 and 32 on a small shape (C = 1024); the Lloyd steps
+# kernel against plain at (M, C, rows): the nbits 10 budget 256 x 2^10 and M = 32 at C = 4096; the
+# flat generate (bs 1, Lt = 32, so that 64 new tokens cross two F = 16 flushes) and the chunked one
+WIDE_SMALL_DM, WIDE_SMALL_C = (1, 8, 16, 32), 1024
+WIDE_LLOYD = ((64, 1024, 262144), (32, 4096, 262144))
+WIDE_PATH_GEOM, WIDE_PROMPT, WIDE_NEW_TOKENS, WIDE_LT, WIDE_CHUNK = "wide_dm2_c1024", 4096, 64, 32, 2048
+# the wide rungs of quality_ladder.FROZEN_WIDE_RUNGS: the entry of the kernels line each rung's
+# encodes count towards (rungs of other widths and sizes are not listed there)
+WIDE_RUNG_ENTRY = {"dm2 C=512": "wide_dm2_c512", "dm2 C=1024": "wide_dm2_c1024",
+                   "dm2 C=4096": "wide_dm2_c4096", "dm4 C=4096": "wide_dm4_c4096"}
+# the wide rungs' bar on Δppl / dense ppl: wider codebooks may not do worse than the dm2 C = 256
+# rung's bar
+Q_WIDE_BAR = 0.010
+# million_tpu's own wide rungs on the same stream and protocol, on the CPU
+# (tools/quality_reference_jax.py --rungs NAME --seed S; nbits 11-12 split by layer and side with
+# --parts): per rung the Δppl of each seed that ran. A wide rung's k-means costs about C / 256 times
+# the 8-bit dm2 rung's, hours of CPU a seed at nbits 11 and 12, where seed 0 alone ran
+Q_WIDE_REF = {
+    "dm2 C=512": [-0.023019237416464833, -0.027059026863613056, -0.01658915027112684],
+    "dm2 C=1024": [-0.011980957209669185],
+    "dm2 C=2048": [-0.006690738311769806],
+    "dm2 C=4096": [-0.007787460234036203],
+    "dm4 C=256": [-0.05356002165979845, -0.0844550768027954, -0.07122085768944686, -0.07340234593114303,
+                  -0.10590151752088062],
+    "dm4 C=512": [-0.09290445201832576, -0.08214971767066359, -0.08811147075616255],
+    "dm4 C=1024": [-0.08384169787369622, -0.08812498685680303],
+    "dm4 C=2048": [-0.07506163203545135],
+    "dm4 C=4096": [-0.0665310006605182],
+}
+# standard deviation of a wide rung's Δppl over five k-means seeds, the port's on an H100 80GB
+# HBM3 at 700 W (`quality_ladder --frozen --wide --seeds 5`)
+Q_WIDE_SEED_STD = {
+    "dm2 C=512": 0.0071417, "dm2 C=1024": 0.0023569, "dm2 C=2048": 0.0027310, "dm2 C=4096": 0.0043680,
+    "dm4 C=256": 0.0104686, "dm4 C=512": 0.0117497, "dm4 C=1024": 0.0090678, "dm4 C=2048": 0.0130498,
+    "dm4 C=4096": 0.0098896,
+}
+# the pipeline at nbits 10 (C = 1024): the sample budget cut from 256 x 2^10 to 65,536 rows a layer
+# and side, as the dm2 run's
+WIDE_PIPE_ROWS = 65536
+
+
+def wide_ref_tol(rung: str):
+    """(reference Δppl, tolerance) of a wide rung, or None without a
+    reference run: the mean of million_tpu's seeds, and the rule of the
+    8-bit rungs (Q_REF_DPPL_TOL) with million_tpu's seed spread where it ran
+    two seeds or more, else the port's own spread in its place."""
+    runs = Q_WIDE_REF.get(rung)
+    if not runs:
+        return None
+    ref = sum(runs) / len(runs)
+    sp = Q_WIDE_SEED_STD[rung]
+    if len(runs) > 1:
+        sj = (sum((r - ref) ** 2 for r in runs) / (len(runs) - 1)) ** 0.5
+    else:
+        sj = sp
+    return ref, max(0.01, 0.25 * abs(ref), 4 * (sp**2 + sj**2 / len(runs)) ** 0.5)
 
 
 def log(*a):
@@ -406,38 +492,48 @@ def bound_of(nbytes: int, ops: int, ops_per_s: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def encode_compare(got, want, x, cents_s, what):
+    """B7's codes against its plain version's on the same inputs: the share of
+    equal codes (>= ENCODE_AGREE) and the reconstruction MSE (within
+    ENCODE_MSE_RTOL); raises otherwise. Returns the share that differs."""
+    import torch
+
+    from million_tpu_torch.pq.ops import pq_decode
+
+    d = x.shape[-1]
+    agree = float((got == want).float().mean())
+    mses = []
+    for codes in (got, want):
+        err = torch.zeros((), device=x.device)
+        for s in range(cents_s.shape[0]):  # per bank, a slab of rows at a time
+            flat_c, flat_x = codes[s].reshape(-1, codes.shape[-1]), x[s].reshape(-1, d)
+            for r0 in range(0, flat_c.shape[0], 1 << 18):
+                rec = pq_decode(flat_c[r0:r0 + (1 << 18)], cents_s[s], "strided")
+                err += (rec - flat_x[r0:r0 + (1 << 18)].float()).square().sum()
+        mses.append(float(err) / x.numel())
+    rel = abs(mses[0] - mses[1]) / mses[1]
+    ok = agree >= ENCODE_AGREE and rel <= ENCODE_MSE_RTOL
+    log(f"[kernel] pq_encode {what}: agreement {agree:.6f} (>= {ENCODE_AGREE}), "
+        f"reconstruction MSE {mses[0]:.6g} vs plain {mses[1]:.6g} (rel {rel:.2g} <= "
+        f"{ENCODE_MSE_RTOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"pq_encode disagrees with its plain version ({what})")
+    return 1.0 - agree
+
+
 def encode_phase(dev, geoms=PATH_GEOMETRIES):
     """pq_encode vs its plain version at the prefill, chunk, admission and
-    flush shapes."""
+    flush shapes ("fast", so bounded at FAST_ENCODE_OPS_PER_S)."""
     import torch
 
     from million_tpu_torch.convert import cents_from_numpy
     from million_tpu_torch.ops import pq_encode_kernel as E
-    from million_tpu_torch.pq.ops import pq_decode, pq_encode_chunked
+    from million_tpu_torch.pq.ops import pq_encode_chunked
 
     nh_k, d, L = 8, 128, 28
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = {}
-
-    def compare(got, want, x, cents_s, what):
-        agree = float((got == want).float().mean())
-        mses = []
-        for codes in (got, want):
-            err = torch.zeros((), device=dev)
-            for s in range(cents_s.shape[0]):  # per bank, a slab of rows at a time
-                flat_c, flat_x = codes[s].reshape(-1, codes.shape[-1]), x[s].reshape(-1, d)
-                for r0 in range(0, flat_c.shape[0], 1 << 18):
-                    rec = pq_decode(flat_c[r0:r0 + (1 << 18)], cents_s[s], "strided")
-                    err += (rec - flat_x[r0:r0 + (1 << 18)].float()).square().sum()
-            mses.append(float(err) / x.numel())
-        rel = abs(mses[0] - mses[1]) / mses[1]
-        ok = agree >= ENCODE_AGREE and rel <= ENCODE_MSE_RTOL
-        log(f"[kernel] pq_encode {what}: agreement {agree:.6f} (>= {ENCODE_AGREE}), "
-            f"reconstruction MSE {mses[0]:.6g} vs plain {mses[1]:.6g} (rel {rel:.2g} <= "
-            f"{ENCODE_MSE_RTOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"pq_encode disagrees with its plain version ({what})")
-        return 1.0 - agree
+    compare = encode_compare
 
     for geom in geoms:
         M, C = ALL_GEOMETRIES[geom]["M"], ALL_GEOMETRIES[geom]["C"]
@@ -457,13 +553,15 @@ def encode_phase(dev, geoms=PATH_GEOMETRIES):
 
         got = kern()
         torch.cuda.synchronize()
+        cb = got.element_size()  # 1 B a code, 2 B in int16 above C = 256
         miss = compare(got[None], plain()[None], x[None], cents[:1], f"{geom} prefill shape "
-                       f"({n_rows} rows x d={d} bf16)")
+                       f"({n_rows} rows x d={d} bf16, {got.dtype} codes)")
         ms, plain_ms, lib_ms = cuda_ms(kern, 20), cuda_ms(plain, 2, warm=1), cuda_ms(library, 2, warm=1)
-        nbytes, ops = E.encode_bytes(n_rows, d, M, 2), E.encode_ops(n_rows, M, C, d // M)
-        bound_ms, bound_by = bound_of(nbytes, ops, F32_OPS_PER_S)
+        nbytes, ops = E.encode_bytes(n_rows, d, M, 2, cb), E.encode_ops(n_rows, M, C, d // M)
+        bound_ms, bound_by = bound_of(nbytes, ops, FAST_ENCODE_OPS_PER_S)
         log(f"[kernel] pq_encode {geom} prefill shape: kernel={ms:.4f} ms bound={bound_ms:.4f} ms "
-            f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop) plain={plain_ms:.3f} ms "
+            f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop at the bf16 tensor-core peak; f32 rate: "
+            f"{ops / F32_OPS_PER_S * 1e3:.3f} ms) plain={plain_ms:.3f} ms "
             f"torch baddbmm+argmin (pq_encode_chunked)={lib_ms:.3f} ms")
         rows[geom] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=miss, library_ms=lib_ms)
@@ -480,8 +578,8 @@ def encode_phase(dev, geoms=PATH_GEOMETRIES):
             if n == PROMPT % CHUNK:
                 continue
             rows_c = bs * nh_k * n
-            bound_c, by_c = bound_of(E.encode_bytes(rows_c, d, M, 2), E.encode_ops(rows_c, M, C, d // M),
-                                     F32_OPS_PER_S)
+            bound_c, by_c = bound_of(E.encode_bytes(rows_c, d, M, 2, cb), E.encode_ops(rows_c, M, C, d // M),
+                                     FAST_ENCODE_OPS_PER_S)
             log(f"[kernel] pq_encode {geom} {what} shape: kernel="
                 f"{cuda_ms(lambda: E.pq_encode_fused(xc, cents[0], 'strided', 'fast'), 200):.4f} ms "
                 f"bound={bound_c:.4f} ms ({by_c}) plain="
@@ -508,8 +606,8 @@ def encode_phase(dev, geoms=PATH_GEOMETRIES):
         compare(kern_f(), plain_f(), window, cents, f"{geom} flush shape ({L} banks x "
                 f"{BS * nh_k * FLUSH} rows)")
         rows_f = L * BS * nh_k * FLUSH
-        bound_f, by_f = bound_of(E.encode_bytes(rows_f, d, M, 2), E.encode_ops(rows_f, M, C, d // M),
-                                 F32_OPS_PER_S)
+        bound_f, by_f = bound_of(E.encode_bytes(rows_f, d, M, 2, cb), E.encode_ops(rows_f, M, C, d // M),
+                                 FAST_ENCODE_OPS_PER_S)
         log(f"[kernel] pq_encode {geom} flush shape: kernel={cuda_ms(kern_f, 200):.4f} ms "
             f"bound={bound_f:.4f} ms ({by_f}) plain={cuda_ms(plain_f, 10):.4f} ms")
         del x, got, window
@@ -1831,6 +1929,394 @@ def checkpoint_phase(dev, cfg, params, launches, card):
         launches[k]["dm2"]["checkpoint"] = w.launches
 
 
+def wide_kernels(dev, card):
+    """Fault C.10 repaired, kernel: B7's wide build (int16 codes) through
+    encode_phase at each of WIDE_GEOMETRIES (the prefill, chunk, admission
+    and flush shapes, integer inputs; timed beside its bound, the plain
+    version and torch's baddbmm + argmin), then at d_m 1, 8, 16 and 32 at
+    C = 1024 on a small shape, integer inputs bit-equal in both precisions.
+    Returns the kernels line's rows by geometry."""
+    import torch
+
+    from million_tpu_torch.ops import pq_encode_kernel as E
+
+    d, nh_k = 128, 8
+    routes = {g: E.encode_route(d // w["M"], w["C"]) for g, w in WIDE_GEOMETRIES.items()}
+    log(f"[wide] B7 routes {routes} ({card})")
+    if set(routes.values()) != {"wide"}:
+        raise RuntimeError("a wide geometry does not take the wide build")
+    rows = encode_phase(dev, tuple(WIDE_GEOMETRIES))
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for dm in WIDE_SMALL_DM:  # the other tiled widths and a generic one, on a small shape
+        M = d // dm
+        xs = torch.randn((2, 700, nh_k, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        cs = torch.randn((M, WIDE_SMALL_C, dm), generator=gen, device=dev)
+        got = E.pq_encode_fused(xs, cs, "strided", "fast")
+        if got.dtype != torch.int16:
+            raise RuntimeError(f"the wide build wrote {got.dtype} codes")
+        encode_compare(got[None], E.pq_encode_fused_plain(xs[None], cs[None], "strided", "fast"), xs[None],
+                       cs[None], f"wide d_m={dm} (M={M}, C={WIDE_SMALL_C}) small shape (2 x {nh_k} x 700 rows)")
+        xi = torch.randint(-4, 5, (1, 333, d), generator=gen, device=dev).float()
+        ci = torch.randint(-4, 5, (1, M, WIDE_SMALL_C, dm), generator=gen, device=dev).float()
+        for pr in ("fast", "exact"):
+            if not bool((E.pq_encode_fused_stacked(xi, ci, "contiguous", pr)
+                         == E.pq_encode_fused_plain(xi, ci, "contiguous", pr)).all()):
+                raise RuntimeError(f"pq_encode's wide build differs on integer inputs (d_m={dm}, {pr})")
+    log(f"[wide] d_m {WIDE_SMALL_DM} at C={WIDE_SMALL_C}: integer-valued inputs bit-equal ({card})")
+    return rows
+
+
+def wide_lloyd(dev, card):
+    """Fault C.10 repaired, k-means: lloyd_pair (25 Lloyd steps from one
+    k-means++ init, every assignment through B7's wide build, then through
+    its plain version) at each of WIDE_LLOYD on quality_bench's synthetic
+    K (d = 128), final inertias within Q_INERTIA_RTOL; the init's time
+    beside the Lloyd steps'."""
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.benchmarks.quality_bench import synth_kv
+    from million_tpu_torch.pq import kmeans
+    from million_tpu_torch.pq.ops import subspace_view
+
+    for M, C, n in WIDE_LLOYD:
+        x = torch.from_numpy(synth_kv(np.random.default_rng(33), n, 128)).to(dev)
+        xs = subspace_view(x, M, "strided").contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kmeans._kmeanspp_init(xs, C, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        del xs
+        gap, inertia, secs, _, _ = lloyd_pair(x, M, C, 25)
+        log(f"[wide] Lloyd M={M}, C={C}, {n} rows (d=128), 25 steps from one init: inertia kernel "
+            f"{inertia[True]!r}, plain {inertia[False]!r}, rel gap {gap:.3g} (tol {Q_INERTIA_RTOL}); "
+            f"k-means++ init {init_s:.3f} s, Lloyd {secs[True]:.3f} s (kernel) vs {secs[False]:.3f} s "
+            f"(plain) ({card})")
+        if not gap <= Q_INERTIA_RTOL:
+            raise RuntimeError(f"wide Lloyd steps at M={M}, C={C}: kernel against plain version failed")
+        del x
+    torch.cuda.empty_cache()
+
+
+def wide_paths(dev, cfg, params, launches, card):
+    """Fault C.10 repaired, model: llama-3.2-3b at full width and depth, dm2
+    at C = 1024 (int16 arenas, bench.py's synthetic codebooks). Flat
+    generate at bs 1 (a 4,096-token prompt, 64 new tokens, Lt = 32 with F =
+    16 flushes) through B7 on the card and the plain attention route that
+    an int16 arena takes in both packages; then the same tokens teacher-
+    forced on two caches, one through B7 and one all-plain, logits within
+    LOGIT_TOL. Chunked generate (2 chunks of 2,048, 17 new tokens: the causal
+    kernel, B7, the plain history); the last chunk through the kernels
+    against the plain partials and against the flat prefill's last logits,
+    each within LOGIT_TOL. Launches into launches[kernel][path]."""
+    import dataclasses
+
+    import torch
+
+    from million_tpu_torch.cache.pq_cache import PQCacheConfig, cache_memory_bytes, init_state
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.models import llama
+    from million_tpu_torch.models.chunked_prefill import _prefill_one_chunk
+    from million_tpu_torch.runtime.generate import generate
+
+    wrappers = path_wrappers()
+    L, d, nh_k = cfg.num_layers, cfg.head_dim, cfg.num_kv_heads
+    g = WIDE_GEOMETRIES[WIDE_PATH_GEOM]
+    cents = cents_from_numpy(synthetic_cents(L, d, WIDE_PATH_GEOM, seed=34), device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, WIDE_PROMPT), generator=torch.Generator(device=dev).manual_seed(35),
+                        device=dev)
+    pqc = PQCacheConfig(bs=1, nh_k=nh_k, d=d, M=g["M"], C=g["C"], Lt=WIDE_LT, N_max=WIDE_PROMPT + 128)
+
+    def drive(path, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        for k, w in wrappers.items():
+            launches[k][path] = w.launches
+        return out
+
+    cache = init_state(pqc, L, device=dev)
+    route = llama.attention_route(cache["key_codes"].dtype)
+    res, cache = drive("flat", lambda: generate(params, cfg, ids, cache, cents, mode="pq_kernel", device=dev,
+                                                max_new_tokens=WIDE_NEW_TOKENS, flush_chunk=FLUSH))
+    got = {k: launches[k]["flat"] for k in wrappers}
+    want = {"pq_decode_attention": 0, "pq_chunk_attention": 0, "pq_encode": 2 * L + 2 * res.n_flushes,
+            "pq_paged_attention": 0, "causal_attention": 0}
+    narrow = cache_memory_bytes(dataclasses.replace(pqc, C=256), L)["codes"]
+    in_vocab = bool(((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all())
+    log(f"[wide] dm2 C={g['C']} flat generate (bs 1, {WIDE_PROMPT}-token prompt, Lt={WIDE_LT}, F={FLUSH}): "
+        f"attention route {route!r} ({cache['key_codes'].dtype} arena), TTFT {res.ttft_s:.3f} s, TPOT "
+        f"{res.tpot_s * 1e3:.3f} ms, flushes {res.n_flushes}, launches {got} (want {want}); code arena "
+        f"{cache_memory_bytes(pqc, L)['codes'] / 1e6:.2f} MB (8-bit: {narrow / 1e6:.2f} MB) ({card})")
+    if (got != want or route != "pq" or res.n_flushes < 2 or res.tokens.shape != (1, WIDE_NEW_TOKENS)
+            or not in_vocab or cache["key_codes"].dtype != torch.int16):
+        raise RuntimeError("C.10: the wide flat generate check failed")
+    # teacher-forced: the generated tokens through a cache encoded by B7 and an all-plain one
+    caches = {True: init_state(pqc, L, device=dev), False: init_state(pqc, L, device=dev)}
+    logits = {k: llama.prefill(params, cfg, ids, c, cents, last_logit_only=True, use_kernel=k)[:, -1]
+              for k, c in caches.items()}
+    gaps, after_flush = [float((logits[True] - logits[False]).abs().max())], [False]
+    for i, tok in enumerate(res.tokens[0, :-1]):
+        flushed = caches[True]["r"] >= WIDE_LT
+        for k, c in caches.items():
+            if flushed:
+                llama.flush_windows(c, cents, n=FLUSH, use_kernel=k)
+            logits[k] = llama.decode_step(params, cfg, torch.tensor([int(tok)], device=dev), WIDE_PROMPT + i, c,
+                                          cents, mode="pq_kernel")
+        if not torch.isfinite(logits[True]).all():
+            raise RuntimeError("C.10: non-finite logits")
+        gaps.append(float((logits[True] - logits[False]).abs().max()))
+        after_flush.append(flushed)
+    log(f"[wide] teacher-forced {len(gaps) - 1} steps, B7 against the all-plain run: max |logit gap| "
+        f"{max(gaps):.4g} (tol {LOGIT_TOL}), prefill {gaps[0]:.4g}, steps after a flush "
+        f"{sum(after_flush)} ({card})")
+    if max(gaps) > LOGIT_TOL or sum(after_flush) < 2:
+        raise RuntimeError("C.10: the wide teacher-forced check failed")
+    flat_last = llama.prefill(params, cfg, ids, init_state(pqc, L, device=dev), cents, last_logit_only=True)[:, -1]
+    del caches, cache
+    torch.cuda.empty_cache()
+    cache = init_state(pqc, L, device=dev)
+    n_chunks = WIDE_PROMPT // WIDE_CHUNK
+    res, cache = drive("chunked", lambda: generate(params, cfg, ids, cache, cents, mode="pq_kernel", device=dev,
+                                                   max_new_tokens=CHUNK_NEW_TOKENS, prefill_chunk=WIDE_CHUNK))
+    got = {k: launches[k]["chunked"] for k in wrappers}
+    want = {"pq_decode_attention": 0, "pq_chunk_attention": 0, "pq_encode": 2 * L * n_chunks + 2 * res.n_flushes,
+            "pq_paged_attention": 0, "causal_attention": L * n_chunks}
+    log(f"[wide] dm2 C={g['C']} chunked generate ({n_chunks} chunks of {WIDE_CHUNK}): TTFT {res.ttft_s:.3f} s, "
+        f"TPOT {res.tpot_s * 1e3:.3f} ms, launches {got} (want {want}) ({card})")
+    if got != want or (cache["n_codes"], cache["r"]) != (WIDE_PROMPT, CHUNK_NEW_TOKENS - 1):
+        raise RuntimeError("C.10: the wide chunked generate check failed")
+    s_last = (n_chunks - 1) * WIDE_CHUNK
+    last = []
+    for use_kernel in (True, False):
+        cache["n_codes"], cache["r"] = s_last, 0
+        last.append(_prefill_one_chunk(params, cfg, ids[:, s_last:], cache, cents, s_last, last_chunk=True,
+                                       hist_block=1024, use_kernel=use_kernel))
+    gap = float((last[0] - last[1]).abs().max())
+    flat_gap = float((last[0] - flat_last).abs().max())
+    log(f"[wide] chunked last chunk, kernels (causal, B7) and the plain history against all-plain partials: "
+        f"max gap {gap:.4g}; against the flat prefill's last logits {flat_gap:.4g} (tol {LOGIT_TOL} each) "
+        f"({card})")
+    if gap > LOGIT_TOL or flat_gap > LOGIT_TOL or not bool(torch.isfinite(last[0]).all()):
+        raise RuntimeError("C.10: the wide chunked last-chunk check failed")
+    del cache, last
+    torch.cuda.empty_cache()
+
+
+def wide_quality(dev, launches, card):
+    """Fault C.10 repaired, quality: the ladder's wide rungs
+    (quality_ladder.FROZEN_WIDE_RUNGS: dm2 at nbits 9-12, then the coarse
+    sweep M = d/4 at nbits 8-12) on lm_l_v1 over the frozen stream, as the
+    quality phase runs its four rungs (B7 in every Lloyd step and prefill),
+    each against Q_WIDE_BAR and, where million_tpu ran it, its Δppl
+    (wide_ref_tol). After each rung, its own encodes against the plain
+    version at their shapes: lloyd_pair on layer 0 K (the sample's rows at
+    the rung's M and C; inertias within Q_INERTIA_RTOL), one of those Lloyd
+    assignments timed beside its bound and the plain version's, one prefill
+    encode at the rung's shape (layer 0 K of a sample window) through
+    encode_compare and timed likewise, and the perplexity again through the
+    plain prefill encode (within Q_PPL_RTOL).
+    Then quality_bench at its defaults, its JSON line. B7's launches of each
+    rung (its training and evaluation, not the checks) go to
+    launches["pq_encode"][entry]."""
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.benchmarks import quality_ladder as ql
+    from million_tpu_torch.benchmarks import quality_bench
+    from million_tpu_torch.benchmarks.tiny_lm import build_corpus_frozen, checkpoint_path_l, load_checkpoint
+    from million_tpu_torch.models.llama import SUBSPACE_LAYOUT
+    from million_tpu_torch.ops.pq_encode_kernel import (encode_bytes, encode_ops, pq_encode_fused_plain,
+                                                        pq_encode_fused_stacked)
+    from million_tpu_torch.pq import kmeans
+    from million_tpu_torch.pq.ops import RUNTIME_ENCODE_PRECISION
+
+    t_phase = time.perf_counter()
+    params, cfg = load_checkpoint(checkpoint_path_l(), device=dev)
+    sample, eval_tokens = ql.frozen_split(build_corpus_frozen())
+    ctx, n_eval, iters = ql.FROZEN_CTX, ql.FROZEN_EVAL_WINDOWS, ql.FROZEN_ITERS
+    nh_k = cfg.num_kv_heads
+    kv_k, kv_v = ql.sample_kv(params, cfg, sample, windows=ql.FROZEN_SAMPLE_WINDOWS, ctx=ctx, bs=8)
+    dense = ql.dense_perplexity(params, cfg, eval_tokens, max_length=ctx, max_windows=n_eval)["ppl"]
+    if not abs(dense - Q_REF_DENSE) <= Q_DENSE_RTOL * Q_REF_DENSE:
+        raise RuntimeError(f"dense perplexity {dense!r} is not the reference's {Q_REF_DENSE!r}")
+    failed = []
+    for name, geom in ql.FROZEN_WIDE_RUNGS.items():
+        pq_encode_fused_stacked.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cents = ql.rung_cents(cfg, kv_k, kv_v, train_iters=iters, device=dev, **geom)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ppl = ql.rung_perplexity(params, cfg, eval_tokens, cents, max_length=ctx, max_windows=n_eval)["ppl"]
+        torch.cuda.synchronize()
+        n_launch = pq_encode_fused_stacked.launches
+        if name in WIDE_RUNG_ENTRY:
+            launches["pq_encode"][WIDE_RUNG_ENTRY[name]]["quality"] = n_launch
+        eval_s = time.perf_counter() - t1
+        # the rung's own encodes against the plain version, at the shapes it gave the kernel
+        M, C = geom["M_k"], 2 ** geom["nbits_k"]
+        gap, _, _, xs, init = lloyd_pair(torch.as_tensor(kv_k[0], device=dev), M, C, iters)
+        assign_ms = cuda_ms(lambda: kmeans.assign(xs, init), 20)
+        assign_plain_ms = cuda_ms(lambda: kmeans._assign(xs, init, kmeans.large_n_chunk(M, C)), 3, warm=1)
+        assign_bound_ms, assign_bound_by = bound_of(encode_bytes(xs.shape[0], cfg.head_dim, M, 4,
+                                                                 2 if C > 256 else 1),
+                                                    encode_ops(xs.shape[0], M, C, cfg.head_dim // M),
+                                                    F32_OPS_PER_S)
+        # one prefill encode at the rung's shape: layer 0 K of the first sample window as the dense
+        # cache held it, (1, heads, ctx, d), under the rung's layer 0 K table
+        xp = torch.as_tensor(kv_k[0][:nh_k * ctx], device=dev).float().reshape(1, nh_k, ctx, cfg.head_dim)
+        kp = cents["key"][:1]
+
+        def prefill_kern():
+            return pq_encode_fused_stacked(xp[None], kp, SUBSPACE_LAYOUT, RUNTIME_ENCODE_PRECISION)
+
+        def prefill_plain():
+            return pq_encode_fused_plain(xp[None], kp, SUBSPACE_LAYOUT, RUNTIME_ENCODE_PRECISION)
+
+        prefill_miss = encode_compare(prefill_kern(), prefill_plain(), xp[None], kp,
+                                      f"{name} prefill shape (layer 0 K, 1 x {nh_k} x {ctx} rows, f32)")
+        prefill_ms, prefill_plain_ms = cuda_ms(prefill_kern, 20), cuda_ms(prefill_plain, 3, warm=1)
+        prefill_bound_ms, prefill_bound_by = bound_of(
+            encode_bytes(nh_k * ctx, cfg.head_dim, M, 4, 2 if C > 256 else 1),
+            encode_ops(nh_k * ctx, M, C, cfg.head_dim // M), FAST_ENCODE_OPS_PER_S)
+        plain_ppl = ql.rung_perplexity(params, cfg, eval_tokens, cents, max_length=ctx, max_windows=n_eval,
+                                       use_kernel=False)["ppl"]
+        ppl_gap = abs(plain_ppl - ppl) / plain_ppl
+        dppl = ppl - dense
+        ref = wide_ref_tol(name)
+        row = {"rung": name, **geom, "ppl": ppl, "dppl": dppl, "rel": dppl / dense, "bar": Q_WIDE_BAR,
+               "ref_dppl": ref and ref[0], "ref_tol": ref and ref[1], "train_s": t1 - t0,
+               "eval_s": eval_s, "pq_encode_launches": n_launch, "lloyd_layer0_k_rel_gap": gap,
+               "ppl_plain_encode": plain_ppl, "ppl_plain_encode_rel_gap": ppl_gap,
+               "lloyd_assign": {"rows": xs.shape[0], "M": M, "C": C, "precision": "exact", "ms": assign_ms,
+                                "plain_ms": assign_plain_ms, "bound_ms": assign_bound_ms,
+                                "bound_by": assign_bound_by},
+               "prefill_encode": {"rows": nh_k * ctx, "M": M, "C": C, "precision": RUNTIME_ENCODE_PRECISION,
+                                  "miss": prefill_miss, "ms": prefill_ms, "plain_ms": prefill_plain_ms,
+                                  "bound_ms": prefill_bound_ms, "bound_by": prefill_bound_by}, "card": card}
+        print(json.dumps(row), flush=True)
+        if row["rel"] > Q_WIDE_BAR or n_launch <= 0:
+            failed.append(f"{name} above its bar or not through B7")
+        if ref and abs(dppl - ref[0]) > ref[1]:
+            failed.append(f"{name} off the reference")
+        if not (gap <= Q_INERTIA_RTOL and ppl_gap <= Q_PPL_RTOL):
+            failed.append(f"{name}: its encodes differ from the plain version's")
+        del cents, xs, init, xp
+    if failed:
+        raise RuntimeError(f"wide quality check failed: {failed}")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = quality_bench.sweep(device=dev)
+    print(json.dumps(out), flush=True)
+    by = {(r["M"], r["nbits"]): r for r in out["sweep"]}
+    d = 64
+    ok = all(np.isfinite(r["rel_mse"]) and np.isfinite(r["attn_mae"]) for r in out["sweep"]) \
+        and by[(d // 4, 10)]["rel_mse"] < by[(d // 4, 8)]["rel_mse"]
+    log(f"[wide] quality_bench (defaults) in {time.perf_counter() - t0:.2f} s: (d/4, 10) rel_mse "
+        f"{by[(d // 4, 10)]['rel_mse']} against (d/4, 8) {by[(d // 4, 8)]['rel_mse']} ({card})")
+    if not ok:
+        raise RuntimeError("quality_bench: non-finite errors, or nbits 10 no better than nbits 8")
+    log(f"[wide] quality phase wall {time.perf_counter() - t_phase:.2f} s on {card}")
+
+
+def wide_pipeline(dev, launches, card):
+    """Fault C.10 repaired, pipeline: `cli.main` on llama-3.2-3b at pq.nbits
+    = 10 (C = 1024, int16 arenas), all four stages, the sample budget cut to
+    WIDE_PIPE_ROWS rows a layer and side (from 256 x 2^10), artifacts in a
+    temporary directory. Checks the samples, the artifact's shapes, an
+    evaluation row on the plain "pq" route, B7 launched, and the run's Lloyd
+    steps (layer 0 K's samples) kernel against plain through lloyd_pair;
+    prints the stage walls and the training s per layer and side."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch import cli
+    from million_tpu_torch.models import llama
+    from million_tpu_torch.utils.config import load_config
+    from million_tpu_torch.utils.fvecs import reservoir_sample_fvecs
+    from million_tpu_torch.utils.ledger import read_results
+
+    wrappers = path_wrappers()
+    config = ROOT / "configs" / "llama-3.2-3b.json"
+    c = load_config([str(config)], ["pq.nbits=10"], base=cli.DEFAULTS)
+    mcfg = llama.PRESETS[c.model.preset]
+    M = cli.pq_m(c, mcfg)
+    shape = (mcfg.num_layers, M, 1024, mcfg.head_dim // M)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_pipeline_") as tmp:
+        for w in wrappers.values():
+            w.launches = 0
+        out = cli.main(["-f", str(config),
+                        "-p", "baseline", "sampling", "training", "evaluation",
+                        "-o", "pq.nbits=10", "-o", f"pq.sample_target={WIDE_PIPE_ROWS}",
+                        "-o", f"pq.train_samples={WIDE_PIPE_ROWS}",
+                        "-o", f"run.artifacts={tmp}/artifacts", "-o", f"run.results={tmp}/results_torch.jsonl",
+                        "-o", f"run.prefill_lengths={json.dumps(PIPE_LENGTHS)}",
+                        "-o", f"run.decode_length={PIPE_DECODE}"])
+        got = {k: w.launches for k, w in wrappers.items()}
+        launches["pq_encode"][WIDE_PATH_GEOM]["pipeline"] = got["pq_encode"]
+        walls = {s: round(wall, 2) for s, (_, wall) in out.items()}
+        tr = out["training"][0]
+        secs = np.asarray(tr["seconds_per_layer_side"])
+        with np.load(tr["path"]) as z:
+            shapes = {k: z[k].shape for k in ("key", "value")}
+            finite = all(np.isfinite(z[k]).all() for k in ("key", "value"))
+        rows = [r for r in read_results(f"{tmp}/results_torch.jsonl") if r["stage"] == "evaluation"]
+        log(f"[wide] pipeline pq.nbits=10: stage walls {walls} s, launches {got}; sampling "
+            f"{out['sampling'][0]['rows_per_layer']} rows a layer and side; training s per layer: K mean "
+            f"{secs[:, 0].mean():.3f} (max {secs[:, 0].max():.3f}), V mean {secs[:, 1].mean():.3f} "
+            f"(max {secs[:, 1].max():.3f}); artifact {shapes}; evaluation route "
+            f"{[r.get('attention_route') for r in rows]} ({card})")
+        for r in rows[0]["result"]["results"] if rows else []:
+            log(f"[speedtest] wide nbits 10 evaluation {rows[0]['mode']} (route {rows[0]['attention_route']}): "
+                f"prefill {r['prefill_length']}: TTFT {r.get('ttft_s', float('nan')):.4f} s, TPOT "
+                f"{r.get('tpot_s', float('nan')) * 1e3:.3f} ms ({card})")
+        ok = (out["sampling"][0]["rows_per_layer"] == WIDE_PIPE_ROWS and finite
+              and shapes == {"key": shape, "value": shape}
+              and len(rows) == 1 and rows[0].get("attention_route") == "pq" and got["pq_encode"] > 0
+              and got["pq_decode_attention"] == 0
+              and all("oom" not in r and np.isfinite(r["tpot_s"]) for r in rows[0]["result"]["results"]))
+        if not ok:
+            raise RuntimeError("C.10: the nbits 10 pipeline check failed")
+        # the run's Lloyd steps, kernel against plain version: layer 0 K as the training stage read it
+        xk = torch.from_numpy(reservoir_sample_fvecs(Path(tr["path"]).parent / "layer0.key.fvecs",
+                                                     WIDE_PIPE_ROWS, seed=0)).to(dev)
+        gap, inertia, lloyd_s, _, _ = lloyd_pair(xk, M, 1024, c.pq.train_iters)
+        log(f"[wide] pipeline layer 0 K, {c.pq.train_iters} Lloyd steps from one init (M={M}, C=1024, "
+            f"{xk.shape[0]} rows): inertia kernel {inertia[True]!r}, plain {inertia[False]!r}, rel gap {gap:.3g} "
+            f"(tol {Q_INERTIA_RTOL}); {lloyd_s[True]:.3f} s vs {lloyd_s[False]:.3f} s ({card})")
+        if not gap <= Q_INERTIA_RTOL:
+            raise RuntimeError("C.10: the nbits 10 pipeline's Lloyd steps, kernel against plain version, failed")
+        del xk
+    torch.cuda.empty_cache()
+
+
+def wide_phase(dev, card, launches):
+    """Fault C.10's phases, in order: the kernel, the Lloyd steps, the model
+    paths, the quality ladder's wide rungs with quality_bench, and the
+    pipeline at nbits 10. Returns the kernels line's rows of B7's wide
+    build; the launches of its drives go to launches["pq_encode"][geometry]."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = wide_kernels(dev, card)
+    wide_lloyd(dev, card)
+    cfg, params = build_model(dev)
+    by_path = {k: {} for k in KERNELS}
+    wide_paths(dev, cfg, params, by_path, card)
+    launches["pq_encode"][WIDE_PATH_GEOM].update(by_path["pq_encode"])
+    del params
+    torch.cuda.empty_cache()
+    wide_quality(dev, launches, card)
+    wide_pipeline(dev, launches, card)
+    log(f"[wide] phase wall {time.perf_counter() - t0:.2f} s on {card}")
+    return rows
+
+
 def build_model(dev):
     """llama-3.2-3b at full width and depth, random bf16 weights from seed 0."""
     import torch
@@ -2013,6 +2499,10 @@ def main() -> int:
     if "--pipeline-only" in sys.argv[1:]:
         pipeline_path(dev, {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}, card)
         return 0
+    wide_launches = {"pq_encode": {g: {} for g in WIDE_GEOMETRIES}}
+    if "--wide-only" in sys.argv[1:]:
+        wide_phase(dev, card, wide_launches)
+        return 0
     only = {a for a in sys.argv[1:] if a in ("--c9-only", "--sessions-only")}
     if only:  # fault C.9's phases and / or the long-context, mixed-serving and checkpoint phases
         if "--c9-only" in only:
@@ -2054,6 +2544,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     quality_path(dev, launches, card)
     pipeline_path(dev, launches, card)
+    wide_rows = wide_phase(dev, card, wide_launches)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2073,6 +2564,14 @@ def main() -> int:
             "launches": sum(c9_launches[name].values()), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+        })
+    source, replaces = KERNELS["pq_encode"]
+    for geom, r in wide_rows.items():  # fault C.10: B7's wide build, launched by the wide drives
+        kernels.append({
+            "name": f"pq_encode[{geom}]", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(wide_launches["pq_encode"][geom].values()), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     if any(k["launches"] <= 0 for k in kernels):
         raise RuntimeError("a kernel of the main path was never launched")

@@ -28,8 +28,17 @@ codes held against the plain version (agreement) and against this
 checkout's (equal codes; a knock-out's numbers say only that it ran), and
 timed with CUDA events, this checkout first, then the others, then back in
 reverse order. One line per shape and geometry: the times, the bound
-(operations at 67 TFLOP/s f32, or bytes at 3.35 TB/s) and the agreements,
-with the card's name and power limit. Needs a CUDA device.
+(operations at 989 TFLOP/s, the bf16 tensor-core peak: a "fast" encode's
+products are of bf16 operands, exact in its f32 sums; or bytes at 3.35 TB/s)
+and the agreements, with the card's name and power limit. Needs a CUDA device.
+
+    python3 -m million_tpu_torch.benchmarks.encode_kernel_ab --generic
+
+instead times this checkout's two kernels for widths outside the tiled set
+against each other at C = 256 (GENERIC_DM): the generic kernel, which holds
+a subspace's whole codebook in shared memory and writes uint8 codes, and the
+wide build's generic kernel, which streams the codebook and writes int16, on
+the prefill shape's rows, in turns, each held against the plain version.
 """
 
 from __future__ import annotations
@@ -48,7 +57,8 @@ from million_tpu_torch.ops import cuda_build
 from million_tpu_torch.ops import pq_encode_kernel as E
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# a "fast" encode's products are of bf16 operands (exact in its f32 sums): the bf16 tensor-core peak
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 GEOMETRIES = {"dm2": (64, 256), "dm4_outlier_c128": (32, 128)}  # M, C
 NH_K, D, LAYERS = 8, 128, 28
 SHAPES = {  # name -> (banks, sequences, tokens per sequence), the (bs, heads, n, d) view
@@ -58,6 +68,7 @@ SHAPES = {  # name -> (banks, sequences, tokens per sequence), the (bs, heads, n
     "flush": (LAYERS, 4, 16),
 }
 ITERS = {"prefill": 20, "chunk": 100, "admission": 200, "flush": 200}
+GENERIC_DM, GENERIC_C = (32, 64, 128), 256
 SOURCE = "pq_encode.cu"
 
 # name -> [(old text, new text)]; each old text must occur in the source
@@ -122,12 +133,60 @@ def make_cases(dev, gen):
     return cases
 
 
+def generic_ab(dev, card, iters: int) -> None:
+    """--generic: pq_encode's generic kernel against pq_encode_wide's at C =
+    GENERIC_C, d_m in GENERIC_DM, on the prefill shape's rows (contiguous,
+    bf16, "fast", strided split), in turns."""
+    lib = E._library()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, bs, n = SHAPES["prefill"]
+    rows = bs * n * NH_K
+    x = torch.randn((1, rows, D), generator=gen, device=dev).bfloat16()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for dm in GENERIC_DM:
+        M = D // dm
+        cents = torch.randn((1, M, GENERIC_C, dm), generator=gen, device=dev)
+        narrow = torch.empty((1, rows, M), dtype=torch.uint8, device=dev)
+        wide = torch.empty((1, rows, M), dtype=torch.int16, device=dev)
+        scratch = torch.empty(lib.pq_encode_wide_scratch(M, GENERIC_C, dm), dtype=torch.float32, device=dev)
+        common = (1, 1, 1, rows, rows * D, 0, 0, D, M, GENERIC_C, dm, 1, 1, 1)
+
+        def run_narrow():
+            err = lib.pq_encode(x.data_ptr(), cents.data_ptr(), narrow.data_ptr(), *common, 1, stream)
+            if err:
+                raise RuntimeError(f"pq_encode (generic) failed: CUDA error {err}")
+
+        def run_wide():
+            err = lib.pq_encode_wide(x.data_ptr(), cents.data_ptr(), wide.data_ptr(), scratch.data_ptr(), *common,
+                                     stream)
+            if err:
+                raise RuntimeError(f"pq_encode_wide failed: CUDA error {err}")
+
+        run_narrow()
+        run_wide()
+        want = E.pq_encode_fused_plain(x, cents, "strided", "fast").long()
+        agree = {"generic": float((narrow.long() == want).float().mean()),
+                 "wide_generic": float((wide.long() == want).float().mean())}
+        times = [(name, cuda_ms(fn, iters)) for name, fn in
+                 (("generic", run_narrow), ("wide_generic", run_wide), ("wide_generic", run_wide),
+                  ("generic", run_narrow))]
+        nbytes, ops = E.encode_bytes(rows, D, M, 2), E.encode_ops(rows, M, GENERIC_C, dm)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        print(f"[generic d_m={dm} M={M} C={GENERIC_C}] {rows} rows: "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
+              + f"; bound {max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})"
+              + "; agreement with the plain version " + ", ".join(f"{n} {a:.6f}" for n, a in agree.items())
+              + f"; {card}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, nargs="*", default=[], help="other pq_encode.cu copies")
     ap.add_argument("--knockouts", action="store_true", help="also time this checkout's knock-out builds")
     ap.add_argument("--shapes", nargs="*", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--iters-scale", type=float, default=1.0)
+    ap.add_argument("--generic", action="store_true",
+                    help="time the generic kernel against the wide build's at C = 256 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("encode_kernel_ab needs a CUDA device")
@@ -138,6 +197,9 @@ def main(argv=None):
     usage = [ln.split(":", 1)[1].strip() for ln in cuda_build.build("pq_encode").log.splitlines()
              if "registers" in ln]
     print(f"[build] this checkout: ptxas {' | '.join(usage) or 'cached'}", flush=True)
+    if args.generic:
+        generic_ab(dev, card, max(2, int(ITERS["prefill"] * args.iters_scale)))
+        return
     copies = {"this": this}
     with tempfile.TemporaryDirectory() as tmp:
         srcs = {str(p): p for p in args.other}
@@ -170,7 +232,7 @@ def main(argv=None):
                 E._lib = copies[name]
                 times.append((name, cuda_ms(kern, iters)))
             nbytes, ops = E.encode_bytes(rows, D, M, 2), E.encode_ops(rows, M, C, D // M)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
             print(f"[{shape} {geom}] {rows} rows: " + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
                   + f"; bound {max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})"
                   + "; agreement with the plain version " + ", ".join(f"{n} {a:.6f}" for n, a in agree.items())

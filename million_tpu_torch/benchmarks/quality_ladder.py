@@ -9,8 +9,9 @@ perplexity (every PQ prefill encodes through the same kernel) -- and reports
 Δppl against dense.
 
 Rungs as in the reference, the OPQ rung included (rotations and codebooks
-trained together by pq/kmeans.train_opq). Rungs with nbits > 8 raise
-NotImplementedError: they need wide int16 codes, a later slice of the port.
+trained together by pq/kmeans.train_opq), and the nbits 9-12 rungs on wide
+int16 codes; `--coarse-sweep` is the reference's M = d/4 ladder at nbits
+8-12.
 
     python -m million_tpu_torch.benchmarks.quality_ladder --fast --device cpu
     python -m million_tpu_torch.benchmarks.quality_ladder --fast      # on the card
@@ -18,9 +19,10 @@ NotImplementedError: they need wide int16 codes, a later slice of the port.
 `--frozen` runs chip_smoke.py's quality ladder instead (lm_l_v1 on
 tiny_lm.build_corpus_frozen(), the FROZEN_* protocol), at `--seeds N`
 k-means seeds, and prints each rung's Δppl at every seed with their mean and
-standard deviation: how far seed noise alone moves a rung.
+standard deviation: how far seed noise alone moves a rung. `--wide` takes
+the wide rungs (FROZEN_WIDE_RUNGS) instead of the four 8-bit ones.
 
-    python -m million_tpu_torch.benchmarks.quality_ladder --frozen --seeds 5
+    python -m million_tpu_torch.benchmarks.quality_ladder --frozen --seeds 5 [--wide]
 
 `main` appends its result to the port's ledger, results_torch.jsonl.
 """
@@ -62,6 +64,14 @@ FROZEN_RUNGS = {
     "dm4+16/16 C=256": dict(M_k=16, nbits_k=8, outlier_k=16, outlier_kk=16),
     "dm4+16/16 C=128": dict(M_k=16, nbits_k=7, outlier_k=16, outlier_kk=16),
     "dm8+16/16 C=128": dict(M_k=8, nbits_k=7, outlier_k=16, outlier_kk=16),
+}
+# The wide rungs on the same stream and protocol: dm2 at nbits 9-12 (ladder_rungs' full ladder),
+# then the coarse sweep, M = d/4 at nbits 8-12. The frozen sample holds 65,536 rows a layer and
+# side, so every rung above nbits 8 trains on all of them (its budget of 256 x 2^nbits rows is
+# 131,072 to 1,048,576).
+FROZEN_WIDE_RUNGS = {
+    **{f"dm2 C={2 ** nb}": dict(M_k=32, nbits_k=nb) for nb in (9, 10, 11, 12)},
+    **{f"dm4 C={2 ** nb}": dict(M_k=16, nbits_k=nb) for nb in (8, 9, 10, 11, 12)},
 }
 
 
@@ -135,9 +145,6 @@ def rung_cents(cfg, kv_k, kv_v, *, M_k: int, nbits_k: int, M_v: Optional[int] = 
     seed=0)."""
     M_v = M_v or M_k
     nbits_v = nbits_v or nbits_k
-    if max(nbits_k, nbits_v) > 8:
-        raise NotImplementedError(
-            "rungs with nbits > 8 need wide int16 codes, a later slice of the port")
     budget = 256 * (2 ** max(nbits_k, nbits_v))
     kv_k_b, kv_v_b = kv_k[:, :budget], kv_v[:, :budget]
     cents = {}
@@ -157,7 +164,8 @@ def rung_cents(cfg, kv_k, kv_v, *, M_k: int, nbits_k: int, M_v: Optional[int] = 
 def rung_perplexity(params, cfg, eval_tokens, cents, *, max_length: int, max_windows: int,
                     use_kernel: bool = True) -> Dict:
     """Distorted-prefill perplexity of one rung's tables, on a flat PQ cache
-    with Lt=64 and N_max=max_length (C from the wider of the two sides)."""
+    with Lt=64 and N_max=max_length (C from the wider of the two sides: int16
+    arenas above 256)."""
     M_k, C_k = cents["key"].shape[1:3]
     M_v, C_v = cents["value"].shape[1:3]
     pqc = PQCacheConfig(
@@ -297,11 +305,11 @@ def main(argv=None):
     ap.add_argument("--model", choices=("tiny", "large"), default="tiny")
     ap.add_argument("--windows", type=int, default=None)
     ap.add_argument("--max-length", type=int, default=None)
-    ap.add_argument("--coarse-sweep", action="store_true",
-                    help="nbits 8..12 at M=d/4 (raises at nbits 9 until wide codes are ported)")
+    ap.add_argument("--coarse-sweep", action="store_true", help="nbits 8..12 at M=d/4")
     ap.add_argument("--frozen", action="store_true",
                     help="chip_smoke.py's ladder: lm_l_v1 on the frozen stream, its four rungs")
     ap.add_argument("--seeds", type=int, default=1, help="k-means seeds of each --frozen rung")
+    ap.add_argument("--wide", action="store_true", help="--frozen over FROZEN_WIDE_RUNGS")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--results", default=None, help="ledger file (default results_torch.jsonl)")
     args = ap.parse_args(argv)
@@ -321,10 +329,11 @@ def main(argv=None):
 
     if args.frozen:
         params, cfg = load_checkpoint(checkpoint_path_l(), device=dev)
-        out = frozen_ladder(params, cfg, build_corpus_frozen(), seeds=args.seeds)
+        out = frozen_ladder(params, cfg, build_corpus_frozen(), seeds=args.seeds,
+                            rungs=FROZEN_WIDE_RUNGS if args.wide else None)
         append_result(args.results or RESULTS, {
             "stage": "quality_ladder_frozen", "backend": dev.type, "card": card, "seeds": args.seeds,
-            "result": out})
+            "wide": args.wide, "result": out})
         return
     out = run_ladder(fast=args.fast, max_windows=windows, max_length=max_length, model=args.model,
                      train_iters=iters, coarse_sweep=args.coarse_sweep, device=dev)

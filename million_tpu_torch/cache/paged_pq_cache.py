@@ -66,9 +66,10 @@ class PagedPQCacheConfig:
     def __post_init__(self):
         if self.page_size % WORD or self.Lt % WORD:
             raise ValueError("page_size and Lt must be multiples of 4")
-        if self.C > 256:
+        if self.C > 256:  # a code of 256 or more would spill into its neighbour's byte
             raise NotImplementedError(
-                "codebooks with C > 256 (wide int16 codes) are a later slice of the port")
+                "page pools hold 8-bit codes in both packages (the reference's int32 words of four "
+                "codes); wide int16 codes (C > 256) take the flat cache")
 
     @property
     def m_v(self) -> int:

@@ -5,8 +5,10 @@ is a functional pytree that every step returns anew; here it is a dict of
 preallocated tensors that prefill, decode and flush update IN PLACE, plus two
 host integers:
 
-  key_codes / value_codes : (L, bs, nh_k, N_max, M | M_v) uint8, token-major
-      code arena (the kernel reads token rows; no word packing).
+  key_codes / value_codes : (L, bs, nh_k, N_max, M | M_v) token-major code
+      arena (the kernel reads token rows; no word packing): uint8 for
+      C <= 256, int16 for wider codebooks (wide_codes; the reference's int16
+      arenas, one code an entry), each side by its own codebook size.
   key_outliers / value_outliers : (L, bs, nh_k, N_max, OK | OV) bf16 exact
       outlier channels (only with OK / OV > 0).
   key_residual / value_residual : (L, bs, nh_k, Lt, d) exact recent tokens in
@@ -29,10 +31,18 @@ from typing import Any, Dict, Optional
 import torch
 
 from million_tpu_torch import resolve_device
+from million_tpu_torch.pq.ops import code_dtype
 
 WORD = 4  # n_codes granularity, kept from the reference's word packing
 
 PQCache = Dict[str, Any]
+
+
+def wide_codes(C: int) -> bool:
+    """Whether a C-entry codebook's codes need int16 storage (C > 256); the
+    reference package's rule (million_tpu/cache/pq_cache.py:65-68). Raises
+    ValueError above 65,536."""
+    return code_dtype(C) == torch.int16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +51,7 @@ class PQCacheConfig:
     nh_k: int
     d: int
     M: int
-    C: int = 256
+    C: int = 256  # the wider side's codebook size: int16 arenas above 256
     Lt: int = 128  # residual window capacity
     N_max: int = 32768  # code arena capacity (quantized tokens)
     dtype: Any = torch.bfloat16
@@ -52,10 +62,13 @@ class PQCacheConfig:
     def __post_init__(self):
         if self.N_max % WORD or self.Lt % WORD:
             raise ValueError("N_max and Lt must be multiples of 4")
-        if self.C > 256:
-            raise NotImplementedError(
-                "codebooks with C > 256 (wide int16 codes) are a later slice of the port"
-            )
+        wide_codes(self.C)
+
+    @property
+    def code_dtype(self) -> torch.dtype:
+        """Both arenas' storage type, from the wider side's C, as the
+        reference's init_layer_state takes it."""
+        return code_dtype(self.C)
 
     @property
     def m_v(self) -> int:
@@ -67,12 +80,14 @@ class PQCacheConfig:
 
 
 def init_state(cfg: PQCacheConfig, num_layers: int, device="cuda") -> PQCache:
-    """Empty stacked (num_layers, ...) cache on `device`."""
+    """Empty stacked (num_layers, ...) cache on `device`: int16 code arenas
+    when cfg.C > 256, else uint8."""
     dev = resolve_device(device)
     L = num_layers
+    cdt = cfg.code_dtype
     st: PQCache = {
-        "key_codes": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.M), dtype=torch.uint8, device=dev),
-        "value_codes": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.m_v), dtype=torch.uint8, device=dev),
+        "key_codes": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.M), dtype=cdt, device=dev),
+        "value_codes": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.N_max, cfg.m_v), dtype=cdt, device=dev),
         "key_residual": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.Lt, cfg.d), dtype=cfg.dtype, device=dev),
         "value_residual": torch.zeros((L, cfg.bs, cfg.nh_k, cfg.Lt, cfg.d), dtype=cfg.dtype, device=dev),
         "n_codes": 0,
@@ -93,9 +108,10 @@ def arena_tokens(arena: torch.Tensor) -> int:
 
 
 def cache_memory_bytes(cfg: PQCacheConfig, num_layers: int) -> Dict[str, float]:
-    """Bytes held by the cache, beside its dense bf16 equivalent."""
+    """Bytes held by the cache, beside its dense bf16 equivalent (a code is
+    1 B, or 2 B in an int16 arena)."""
     per = cfg.bs * cfg.nh_k * num_layers
-    code_bytes = per * cfg.N_max * (cfg.M + cfg.m_v)
+    code_bytes = per * cfg.N_max * (cfg.M + cfg.m_v) * cfg.code_dtype.itemsize
     out_bytes = per * cfg.N_max * (cfg.OK + cfg.OV) * 2
     res_bytes = 2 * per * cfg.Lt * cfg.d * torch.tensor([], dtype=cfg.dtype).element_size()
     dense_bytes = 2 * per * cfg.max_tokens * cfg.d * 2
@@ -113,7 +129,7 @@ def cache_memory_bytes(cfg: PQCacheConfig, num_layers: int) -> Dict[str, float]:
 def stacked_prefix_write(
     cache: PQCache,
     li: int,
-    kc: torch.Tensor,  # (bs, nh_k, n4, M) uint8 codes, n4 % 4 == 0
+    kc: torch.Tensor,  # (bs, nh_k, n4, M) codes of the arena's dtype, n4 % 4 == 0
     vc: torch.Tensor,  # (bs, nh_k, n4, M_v)
     k_tail: Optional[torch.Tensor],  # (bs, nh_k, tail, d) exact tail or None
     v_tail: Optional[torch.Tensor],
@@ -146,7 +162,7 @@ def stacked_prefix_write(
 # single-layer helpers (million_tpu/cache/pq_cache.py:165,194,239)
 # --------------------------------------------------------------------------
 # One layer's cache is the stacked cache without its leading L axis:
-# key_codes / value_codes (bs, nh_k, N_max, M | M_v) uint8, key_residual /
+# key_codes / value_codes (bs, nh_k, N_max, M | M_v) uint8 or int16, key_residual /
 # value_residual (bs, nh_k, Lt, d), and the host counters n_codes and r. The
 # helpers update it in place and return it. They encode through
 # pq/ops.runtime_encode, so a CUDA cache runs the fused encode kernel.

@@ -18,7 +18,9 @@ It reads the same configs/*.json as million_tpu.cli. Stages:
   evaluation  benchmark with the PQ cache; run.mode "pq_pallas" (the
               reference's kernel mode, configs/default.json) runs the port's
               "pq_kernel". Rows go to the port's ledger, results_torch.jsonl,
-              with the mode that ran and the backend.
+              with the mode that ran, the backend and the attention route
+              (pq.nbits 9-12 give int16 arenas, whose decode attention takes
+              the plain "pq" route, as in the reference package).
 
 Benchmark kinds follow run.dataset: `_synthetic` the speedtest (TTFT / TPOT
 per prefill length), a .txt / .npy file or wikitext / ptb the perplexity,
@@ -140,12 +142,18 @@ def sample_budget(cfg: Config, mcfg) -> int:
     return 256 * (2 ** max(nb_k, nb_v))
 
 
+def pq_cache_config(cfg, mcfg, bs=1, n_max=None) -> PQCacheConfig:
+    """The flat PQ cache of the run: C from the wider side's codebook, so a
+    side at nbits 9-12 gets int16 arenas (pq_cache.wide_codes)."""
+    M_k, nb_k, M_v, nb_v = pq_geometry(cfg, mcfg)
+    OK, OV = outlier_geometry(cfg)
+    return PQCacheConfig(bs=bs, nh_k=mcfg.num_kv_heads, d=mcfg.head_dim, M=M_k, M_v=M_v,
+                         C=2 ** max(nb_k, nb_v), Lt=cfg.pq.Lt, N_max=n_max or cfg.cache.N_max, OK=OK, OV=OV)
+
+
 def make_pq_cache_factory(cfg, mcfg, bs=1, n_max=None, device="cuda"):
     dev = resolve_device(device)
-    M_k, nb_k, M_v, _ = pq_geometry(cfg, mcfg)
-    OK, OV = outlier_geometry(cfg)
-    pqc = PQCacheConfig(bs=bs, nh_k=mcfg.num_kv_heads, d=mcfg.head_dim, M=M_k, M_v=M_v, C=2**nb_k,
-                        Lt=cfg.pq.Lt, N_max=n_max or cfg.cache.N_max, OK=OK, OV=OV)
+    pqc = pq_cache_config(cfg, mcfg, bs, n_max)
     return lambda *_: init_state(pqc, mcfg.num_layers, device=dev)
 
 
@@ -420,8 +428,10 @@ def stage_evaluation(cfg, mcfg, params):
     path = cents_path(cfg, mcfg)
     centroids = str(path) if path.exists() else "_synthetic"  # the row names the tables it ran on
     tables = load_cents(cfg, mcfg, device=dev)
+    # the decode attention the run takes: "pq" where wide (int16) codes leave "pq_kernel" no kernel
+    route = llama.attention_route(pq_cache_config(cfg, mcfg).code_dtype, mode) if mode != "dense" else mode
     res = run_benchmark(cfg, mcfg, params, mode, tables)
-    _record(cfg, "evaluation", mode, res, dev, centroids=centroids)
+    _record(cfg, "evaluation", mode, res, dev, centroids=centroids, attention_route=route)
     log("evaluation:", res)
     return res
 

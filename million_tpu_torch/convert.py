@@ -3,7 +3,9 @@
 The caller turns JAX arrays into numpy (np.asarray); nothing here imports
 JAX. The reference package's at-rest formats are translated:
   codes: (..., M, N/4) int32 words, byte t of word w = token 4w+t,
-         subspace-major  ->  (..., N, M) uint8 token-major;
+         subspace-major  ->  (..., N, M) uint8 token-major; a wide arena
+         (C > 256), (..., M, N) int16 subspace-major  ->  (..., N, M) int16
+         token-major (arena_to_numpy goes back, for the tests);
   outlier channels: byte planes (..., 4, O, N/4), [..., b, :, w] = token
          4w+b  ->  (..., N, O) bf16;
   page pools: the same two translations page by page (a page is a small
@@ -47,6 +49,28 @@ def arena_from_words(words: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.swapaxes(unpack_codes(words), -1, -2))
 
 
+def arena_from_numpy(arena: np.ndarray) -> np.ndarray:
+    """A JAX code arena of either storage -> the port's token-major arena:
+    packed int32 words (..., M, N/4) -> (..., N, M) uint8; a wide int16
+    arena (..., M, N) -> (..., N, M) int16, the same bits."""
+    a = np.asarray(arena)
+    if a.dtype == np.int16:
+        return np.ascontiguousarray(np.swapaxes(a, -1, -2))
+    if a.dtype != np.int32:
+        raise ValueError(f"a code arena is int32 words or int16 codes, got {a.dtype}")
+    return arena_from_words(a)
+
+
+def arena_to_numpy(arena: torch.Tensor) -> np.ndarray:
+    """Inverse of arena_from_numpy: the port's (..., N, M) arena -> the JAX
+    package's, int16 (..., M, N) or packed int32 words (..., M, N/4)."""
+    a = np.swapaxes(arena.detach().cpu().numpy(), -1, -2)  # (..., M, N)
+    if a.dtype == np.int16:
+        return np.ascontiguousarray(a)
+    b = a.astype(np.uint32).reshape(*a.shape[:-1], a.shape[-1] // 4, 4)
+    return (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24).view(np.int32)
+
+
 def params_from_numpy(tree: Dict[str, Any], dtype: torch.dtype = torch.bfloat16,
                       device="cuda") -> Dict[str, Any]:
     """A million_tpu init_params tree (numpy leaves) -> the port's params.
@@ -81,12 +105,10 @@ def pq_cache_from_numpy(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     Its per-layer counters must agree across layers (they always do on the
     flat path)."""
     dev = resolve_device(device)
-    if np.asarray(cache["key_codes"]).dtype != np.int32:
-        raise NotImplementedError("wide int16 code arenas are a later slice of the port")
-    out: Dict[str, Any] = {
-        "key_codes": _tensor(arena_from_words(cache["key_codes"]), torch.uint8, dev),
-        "value_codes": _tensor(arena_from_words(cache["value_codes"]), torch.uint8, dev),
-    }
+    out: Dict[str, Any] = {}
+    for k in ("key_codes", "value_codes"):
+        a = arena_from_numpy(cache[k])
+        out[k] = torch.from_numpy(a).to(dev) if a.dtype == np.int16 else _tensor(a, torch.uint8, dev)
     res_dtype = torch.float32 if np.asarray(cache["key_residual"]).dtype == np.float32 else torch.bfloat16
     for k in ("key_residual", "value_residual"):
         out[k] = _tensor(cache[k], res_dtype, dev)
@@ -110,7 +132,9 @@ def paged_state_from_numpy(state: Dict[str, Any], pcfg, device="cuda") -> Dict[s
     out: Dict[str, torch.Tensor] = {}
     for k in ("key_pool", "value_pool"):
         if np.asarray(state[k]).dtype != np.int32:
-            raise NotImplementedError("wide int16 code pools are a later slice of the port")
+            raise NotImplementedError(
+                "page pools hold 8-bit codes in both packages (int32 words of four); wide int16 "
+                "codes (C > 256) take the flat cache")
         out[k] = _tensor(arena_from_words(state[k]), torch.uint8, dev)
     for k in ("key_outlier_pool", "value_outlier_pool"):
         if k in state:

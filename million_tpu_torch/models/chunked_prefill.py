@@ -28,6 +28,12 @@ reference's power-of-two block bucketing and kernel block choice limit XLA
 recompiles and Mosaic block shapes; the kernel here takes the history length
 as a host integer.
 
+Wide codes (an int16 arena, C > 256): the history partial takes its plain
+route (`_history_partial`), as the reference package does for wide
+codebooks (million_tpu/models/chunked_prefill.py:82-84); the in-chunk causal
+kernel and the encode kernel still run on the card. The route comes from the
+arena's dtype (llama.attention_route), before any launch.
+
 OPQ (cents "Rk" / "Rv"): the stored k / v rotate; the in-chunk partial stays
 in the original space, the history partial runs in rotated space (q rotated
 by Rk) and its output unrotates by Rv^T once per layer and chunk, before the
@@ -55,6 +61,7 @@ from million_tpu_torch.models.llama import (
     _rms_norm,
     _rope,
     _unsupported,
+    attention_route,
 )
 from million_tpu_torch.ops.causal_attention_kernel import causal_partial, causal_partial_plain
 from million_tpu_torch.ops.pq_attention_ref import merge_two_partials
@@ -79,7 +86,8 @@ def _history_partial(q, key_codes, value_codes, kcent, vcent, n_prev: int, scale
     kernel's plain version behind the GQA regrouping, at the precision the
     kernel route takes for this model).
 
-    q (bs, nh, nc, d) raw; key_codes/value_codes (bs, nh_k, N_max, M) uint8;
+    q (bs, nh, nc, d) raw; key_codes/value_codes (bs, nh_k, N_max, M), uint8
+    or int16;
     outliers = koidx, k_outliers, voidx, v_outliers as in
     pq_chunk_history_attention. Returns (out (bs, nh, nc, d) f32 normalised,
     lse (bs, nh, nc) f32)."""
@@ -113,6 +121,7 @@ def _prefill_one_chunk(
     n4 = (nc // WORD) * WORD if last_chunk else nc
     tail = nc - n4
     n_prev = cache["n_codes"]  # history BEFORE this chunk's write
+    kernel_history = use_kernel and attention_route(cache["key_codes"].dtype) == "pq_kernel"
     x = params["embed"][ids]
     rope = _rope(cfg, pos_offset + torch.arange(nc, device=x.device), x.device)
     for i in range(cfg.num_layers):
@@ -144,7 +153,7 @@ def _prefill_one_chunk(
         )
         attn, lse_c = (causal_partial if use_kernel else causal_partial_plain)(q, k, v, scale)
         if n_prev:
-            history = pq_chunk_history_attention if use_kernel else _history_partial
+            history = pq_chunk_history_attention if kernel_history else _history_partial
             out_h, lse_h = history(
                 q if Rk is None else _opq_rotate(q, Rk), cache["key_codes"][i], cache["value_codes"][i], cents["key"][i],
                 cents["value"][i], n_prev, scale, hist_block=hist_block, **hokw)
@@ -180,7 +189,7 @@ def chunked_prefill(
     takes the plain versions of both partials on any device; the default
     takes their wrappers (causal_partial, pq_chunk_history_attention), which
     launch the kernels for CUDA tensors and run the plain versions for CPU
-    tensors. The plain history version decodes hist_block history tokens at
+    tensors; an int16 (wide-code) arena takes the plain history route. The plain history version decodes hist_block history tokens at
     a time (its memory bound); the kernel walks the history in its own tiles
     and does not read it."""
     _unsupported(mesh=mesh)

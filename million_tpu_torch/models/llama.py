@@ -12,7 +12,12 @@ Decode attention modes:
   "pq"        the plain oracle pq_decode_attention_ref over the PQ cache;
   "pq_kernel" the hand-written CUDA kernel over the code arena plus the exact
               residual window, LSE-merged (million_tpu's "pq_pallas").
-On CPU tensors "pq_kernel" runs the kernel's plain PyTorch version.
+On CPU tensors "pq_kernel" runs the kernel's plain PyTorch version. On an
+int16 code arena (wide codes, C > 256) "pq_kernel" takes the "pq" route, as
+the reference package demotes "pq_pallas" (million_tpu/models/llama.py:568-
+571): no decode attention kernel of either package reads wide codes, and
+`attention_route` decides it from the arena's dtype before any launch. Every
+encode (prefill and flush) still runs the fused encode kernel on the card.
 
 OPQ: cents may carry per-layer rotations "Rk" / "Rv" (L, d, d). The cache
 then lives in rotated space: the stored k / v are rotated in f32 and cast
@@ -20,8 +25,7 @@ back, the decode q rotates by Rk, and the attention output unrotates by Rv^T
 before wo. Prefill attention stays in the original space. The rotations are
 plain matrix products outside the kernels, as in the reference.
 
-Not in this slice of the port (each raises NotImplementedError): wide int16
-codes (C > 256) and mesh.
+Not in this slice of the port (raises NotImplementedError): mesh.
 """
 
 from __future__ import annotations
@@ -298,6 +302,16 @@ def _layer_rots(cents, i: int):
     return cents["Rk"][i], cents["Rv"][i]
 
 
+def attention_route(code_dtype: torch.dtype, mode: str = "pq_kernel") -> str:
+    """The decode attention a PQ cache whose code arena has this dtype takes
+    under `mode`: "pq_kernel" over uint8 codes, the plain "pq" route over
+    int16 (wide) codes, which no attention kernel reads; other modes as
+    given."""
+    if mode == "pq_kernel" and code_dtype == torch.int16:
+        return "pq"
+    return mode
+
+
 def _unsupported(**flags) -> None:
     for name, val in flags.items():
         if val:
@@ -476,6 +490,7 @@ def decode_step(
     x = params["embed"][token][:, None, :]
     rope = _rope(cfg, int(pos), x.device)
     if mode != "dense":
+        mode = attention_route(cache["key_codes"].dtype, mode)
         n_codes, r = cache["n_codes"], cache["r"]
         if r >= cache["key_residual"].shape[3]:
             raise ValueError("residual window is full: flush before the decode step")
@@ -518,12 +533,14 @@ def decode_step(
 
 
 @torch.no_grad()
-def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int = 0) -> None:
+def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int = 0,
+                  use_kernel: bool = True) -> None:
     """Flush the oldest n rows of every layer's residual window into the code
     arena, IN PLACE: one fused encode per side with a codebook bank per layer
-    (the kernel on the card, its plain version on the CPU), codes and exact
-    outlier channels (cast to bf16) written at n_codes, then the surviving
-    rows roll down (n < Lt) or the window empties (n = 0 or Lt)."""
+    (the kernel on the card, its plain version on the CPU or with
+    use_kernel=False), codes and exact outlier channels (cast to bf16)
+    written at n_codes, then the surviving rows roll down (n < Lt) or the
+    window empties (n = 0 or Lt)."""
     Lt = cache["key_residual"].shape[3]
     if n <= 0 or n >= Lt:
         n = Lt
@@ -537,8 +554,8 @@ def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int 
     for side in ("key", "value"):
         res = cache[side + "_residual"]
         window = res[:, :, :, :n]
-        codes = pq_encode_fused_stacked(window, cents[side], SUBSPACE_LAYOUT,
-                                        precision=RUNTIME_ENCODE_PRECISION)
+        encode = pq_encode_fused_stacked if use_kernel else pq_encode_fused_plain
+        codes = encode(window, cents[side], SUBSPACE_LAYOUT, precision=RUNTIME_ENCODE_PRECISION)
         cache[side + "_codes"][:, :, :, s:s + n] = codes
         arena = cache.get(side + "_outliers")
         if arena is not None:

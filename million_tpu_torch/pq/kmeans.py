@@ -14,8 +14,9 @@ function here takes all M at once: samples `xs` (n, M, d_m) f32, codebooks
 a CUDA tensor it launches that kernel (ops/pq_encode_kernel.py, "exact"), which
 never writes the (n, M, C) distances; on the CPU, or with use_kernel=False,
 it is the plain matmul plus argmin (pq/ops.pq_encode) over row chunks. The
-update sums with index_add_. Codes are uint8, so C <= 256: wider codebooks
-raise NotImplementedError, as the encode does.
+update sums with index_add_. Codes are uint8 up to C = 256 and int16 above
+(the encode's wide build), read back as int64 indices (pq/ops.code_index)
+before they index the statistics.
 
 jax.random keys become one torch.Generator per call, seeded from `seed` on the
 samples' device: the two draw different points, so `lloyd` starts from given
@@ -29,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused
-from million_tpu_torch.pq.ops import pq_decode, pq_encode, subspace_view
+from million_tpu_torch.pq.ops import code_index, pq_decode, pq_encode, subspace_view
 
 INIT_CAP = 1 << 17  # k-means++ draws from at most this many strided points
 SUB_CAP = 1 << 17  # the large-n step's donor pool
@@ -42,8 +43,8 @@ def _rows(xs: torch.Tensor) -> torch.Tensor:
 
 
 def _assign(xs: torch.Tensor, cents: torch.Tensor, chunk_n: int = 0) -> torch.Tensor:
-    """Plain assignment: xs (n, M, d_m), cents (M, C, d_m) -> (n, M) uint8
-    index of the nearest centroid, a batched matmul plus argmin. chunk_n > 0
+    """Plain assignment: xs (n, M, d_m), cents (M, C, d_m) -> (n, M) codes
+    (uint8, or int16 above C = 256) of the nearest centroid, a batched matmul plus argmin. chunk_n > 0
     bounds the distance block to (M, chunk_n, C)."""
     x = _rows(xs)
     n = x.shape[0]
@@ -55,13 +56,9 @@ def _assign(xs: torch.Tensor, cents: torch.Tensor, chunk_n: int = 0) -> torch.Te
 
 def assign(xs: torch.Tensor, cents: torch.Tensor, chunk_n: int = 0,
            use_kernel: bool = True) -> torch.Tensor:
-    """Nearest centroid of every row and subspace -> (n, M) uint8: the fused
+    """Nearest centroid of every row and subspace -> (n, M) codes: the fused
     encode kernel for a CUDA tensor (use_kernel), else `_assign`."""
-    C, d_m = cents.shape[-2:]
-    if C > 256:
-        raise NotImplementedError(
-            "codebooks with C > 256 (wide int16 codes) are a later slice of the port")
-    if use_kernel and xs.device.type == "cuda":  # every d_m: the tiled or the generic kernel
+    if use_kernel and xs.device.type == "cuda":  # every d_m and C: the kernel encode_route picks
         return pq_encode_fused(_rows(xs), cents, "contiguous", precision="exact")
     return _assign(xs, cents, chunk_n)
 
@@ -69,7 +66,7 @@ def assign(xs: torch.Tensor, cents: torch.Tensor, chunk_n: int = 0,
 def _flat_index(codes: torch.Tensor, C: int) -> torch.Tensor:
     """(n, M) codes -> (n * M,) rows of the (M * C, ...) statistics."""
     M = codes.shape[1]
-    return (codes.long() + torch.arange(M, device=codes.device) * C).reshape(-1)
+    return (code_index(codes) + torch.arange(M, device=codes.device) * C).reshape(-1)
 
 
 def _update(xs: torch.Tensor, codes: torch.Tensor, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,7 +102,7 @@ def _split_empty(xs: torch.Tensor, codes: torch.Tensor, cents: torch.Tensor,
     """Re-seed empty clusters at the rows worst served by their assigned
     centroid (largest distance), one row per empty cluster in order."""
     C = cents.shape[1]
-    d2 = (xs - cents[torch.arange(xs.shape[1], device=xs.device), codes.long()]).square().sum(-1)
+    d2 = (xs - cents[torch.arange(xs.shape[1], device=xs.device), code_index(codes)]).square().sum(-1)
     order = torch.topk(d2.t(), C, dim=1).indices  # (M, C) worst-served rows
     return _fill_empty(cents, counts, _gather_rows(xs, order))
 
@@ -117,7 +114,7 @@ def _kmeanspp_init(xs: torch.Tensor, C: int, generator: torch.Generator) -> torc
     distance to the nearest one already chosen, so a row at distance 0 is
     never drawn (a subspace whose rows are all covered draws uniformly). The
     draw runs on at most INIT_CAP evenly strided rows; Lloyd then runs on
-    all of them."""
+    all of them. No draw reads anything back to the host."""
     n, M, _ = xs.shape
     if n > INIT_CAP:
         xs = xs[::n // INIT_CAP][:INIT_CAP]
@@ -130,7 +127,11 @@ def _kmeanspp_init(xs: torch.Tensor, C: int, generator: torch.Generator) -> torc
     min_d2 = (xm - cents[:, :1]).square().sum(-1)  # (M, n)
     for c in range(1, C):
         w = torch.where(min_d2.sum(-1, keepdim=True) > 0, min_d2, torch.ones_like(min_d2))
-        pick = torch.multinomial(w, 1, generator=generator)[:, 0]
+        # torch.multinomial(w, 1)'s own draw, argmax of w / Exp(1) noise (the same numbers from
+        # the same generator), without its two host reads of validity checks per draw: the
+        # C - 1 draws queue on the device with no synchronisation
+        q = torch.empty_like(w).exponential_(1.0, generator=generator)
+        pick = torch.argmax(w / q, dim=-1)
         cents[:, c] = xm[ar, pick]
         min_d2 = torch.minimum(min_d2, (xm - cents[:, c:c + 1]).square().sum(-1))
     return cents
@@ -166,7 +167,7 @@ def _lloyd_iter_large(xs: torch.Tensor, xs_sub: torch.Tensor, cents: torch.Tenso
 def _nearest_d2(xs: torch.Tensor, cents: torch.Tensor, chunk_n: int, use_kernel: bool) -> torch.Tensor:
     """Squared distance of every row and subspace to its nearest centroid (n, M)."""
     codes = assign(xs, cents, chunk_n, use_kernel)
-    near = cents[torch.arange(xs.shape[1], device=xs.device), codes.long()]  # (n, M, d_m)
+    near = cents[torch.arange(xs.shape[1], device=xs.device), code_index(codes)]  # (n, M, d_m)
     return (xs - near).square().sum(-1)
 
 

@@ -7,8 +7,10 @@ PyTorch counterpart of million_tpu/pq/ops.py, with the same shape vocabulary:
 `pq_encode` is a batched matmul plus argmin, as XLA computes it in the
 reference package: the oracle, and the plain version of the fused encode
 kernel (ops/pq_encode_kernel.py) that `runtime_encode` launches for CUDA
-tensors. Codes are uint8 (C <= 256); wider codebooks belong to a later slice
-of the port.
+tensors. Codes are uint8 for C <= 256 and int16 for 256 < C <= 65,536 (the
+reference package's wide codes, million_tpu/cache/pq_cache.py:65-68): a code
+above 32,767 is stored as its bit pattern, and every reader takes
+`code_index(codes)`, which reads it back unsigned.
 """
 
 from __future__ import annotations
@@ -25,6 +27,22 @@ RUNTIME_ENCODE_PRECISION = "fast"
 # off because a k = d_m contraction wastes the MXU; on CUDA cores that reason
 # does not exist. CPU tensors take the kernel's plain version either way.
 RUNTIME_FUSED_ENCODE = True
+
+MAX_C = 1 << 16  # the widest codebook an int16 code indexes
+
+
+def code_dtype(C: int) -> torch.dtype:
+    """Storage type of a code of a C-entry codebook: uint8 up to 256, int16
+    (the bit pattern of an unsigned 16-bit index) up to MAX_C."""
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"codebook size {C} is outside 1..{MAX_C}")
+    return torch.uint8 if C <= 256 else torch.int16
+
+
+def code_index(codes: torch.Tensor) -> torch.Tensor:
+    """Codes of either storage type -> int64 centroid indices (int16 codes
+    read back unsigned, as the reference's take wraps a negative index)."""
+    return codes.long() & 0xFFFF
 
 
 def subspace_view(x: torch.Tensor, M: int, layout: str = "contiguous") -> torch.Tensor:
@@ -70,7 +88,8 @@ def pq_encode(
     batched_cents: bool = False,
     precision: str = "exact",
 ) -> torch.Tensor:
-    """Nearest-centroid encode. x (..., d), cents (M, C, d_m) -> (..., M) uint8.
+    """Nearest-centroid encode. x (..., d), cents (M, C, d_m) -> (..., M)
+    codes of code_dtype(C).
 
     argmin_c ||c_mc||^2 - 2 <x_m, c_mc>, computed in f32 (ties go to the
     lowest index, as jnp.argmin). precision "fast" rounds x and the centroids
@@ -80,11 +99,8 @@ def pq_encode(
     batched_cents=True: cents (X, M, C, d_m) with x's leading axis a
     multiple of X, pairing x[i] with cents[i * X // x.shape[0]] (one encode
     for every layer of a flush)."""
-    if cents.shape[-2] > 256:
-        raise NotImplementedError(
-            "codebooks with C > 256 (wide int16 codes) are a later slice of the port"
-        )
     M, C = cents.shape[-3], cents.shape[-2]
+    out_dtype = code_dtype(C)
     xs = subspace_view(x, M, layout)  # (..., M, d_m)
     xs, c = _cast_inputs(xs, cents, precision)
     c_sq = (c * c).sum(-1)  # (..., M, C)
@@ -102,7 +118,7 @@ def pq_encode(
         dist = torch.baddbmm(c_sq[:, None, :], rows, c.transpose(-1, -2), alpha=-2.0)  # (M, R, C)
         codes = torch.argmin(dist, dim=-1)  # (M, R)
         codes = codes.t().reshape(*x.shape[:-1], M)
-    return codes.to(torch.uint8)
+    return codes.to(out_dtype)
 
 
 def pq_encode_chunked(
@@ -126,7 +142,8 @@ def pq_encode_chunked(
 
 def runtime_encode(x: torch.Tensor, cents: torch.Tensor, layout: str = "contiguous") -> torch.Tensor:
     """Encode of the prefill, flush and admission call sites, at
-    RUNTIME_ENCODE_PRECISION: x (..., d), cents (M, C, d_m) -> (..., M) uint8.
+    RUNTIME_ENCODE_PRECISION: x (..., d), cents (M, C, d_m) -> (..., M) codes
+    of code_dtype(C).
     With RUNTIME_FUSED_ENCODE a CUDA tensor goes through the fused kernel; a
     CPU tensor, or the switch off, through the chunked batched-GEMM encode."""
     if RUNTIME_FUSED_ENCODE and x.device.type != "cpu":
@@ -139,7 +156,7 @@ def runtime_encode(x: torch.Tensor, cents: torch.Tensor, layout: str = "contiguo
 def pq_decode(codes: torch.Tensor, cents: torch.Tensor, layout: str = "contiguous") -> torch.Tensor:
     """Reconstruct vectors: codes (..., M), cents (M, C, d_m) -> (..., d)."""
     M, C, d_m = cents.shape
-    idx = codes.long().reshape(-1, M)  # (B, M)
+    idx = code_index(codes).reshape(-1, M)  # (B, M)
     gathered = cents[torch.arange(M, device=cents.device)[None, :], idx]  # (B, M, d_m)
     return merge_subspaces(gathered, layout).reshape(*codes.shape[:-1], M * d_m)
 
@@ -157,7 +174,7 @@ def lut_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     n = codes.shape[-2]
     batch = torch.broadcast_shapes(lut.shape[:-2], codes.shape[:-2])
     flat = lut.reshape(*lut.shape[:-2], 1, M * C).expand(*batch, n, M * C)
-    idx = (codes.long() + torch.arange(M, device=codes.device) * C).expand(*batch, n, M)
+    idx = (code_index(codes) + torch.arange(M, device=codes.device) * C).expand(*batch, n, M)
     g = torch.gather(flat, -1, idx)
     return g.sum(-1)
 

@@ -288,7 +288,8 @@ def test_encode_route_covers_the_target_set():
         for dm in target_widths(d, encode=True):
             assert E.encode_route(dm, C) == ("tiled" if dm <= 16 else "generic")
     assert E.encode_route(6, 200) == "generic"  # widths that are not powers of two
-    for bad in ((4, 300), (0, 128)):
+    assert E.encode_route(4, 300) == "wide"  # C > 256: the wide build (fault C.10)
+    for bad in ((4, 65537), (0, 128)):
         with pytest.raises(ValueError):
             E.encode_route(*bad)
 

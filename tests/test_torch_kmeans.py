@@ -164,9 +164,13 @@ def test_kmeans_single_subspace(rng):
 
 
 def test_wide_codebooks_raise(rng):
+    """nbits 9 (C = 512, int16 codes) trains, as wide codes are ported; fewer
+    samples than centroids still raise."""
     x = torch.from_numpy(rng.standard_normal((1024, 8)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        tk.train_pq(x, 4, nbits=9, iters=1)
+    cents = tk.train_pq(x, 4, nbits=9, iters=1)
+    assert cents.shape == (4, 512, 2) and bool(torch.isfinite(cents).all())
+    codes = tk.assign(tops.subspace_view(x, 4).contiguous(), cents)
+    assert codes.dtype == torch.int16 and int(tops.code_index(codes).max()) < 512
     with pytest.raises(ValueError):
         tk.train_pq(x[:100], 4, nbits=8)
 

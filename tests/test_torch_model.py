@@ -233,8 +233,6 @@ def test_later_slices_raise(rng, params):
     # distort_recent and return_hidden arrived with the quality slice
     hidden = tl.prefill(tp, TCFG, ids, caches(gkw)[1], tcents, distort_recent=True, return_hidden=True)
     assert hidden.shape == (BS, 4, TCFG.hidden_size)
-    with pytest.raises(NotImplementedError):
-        PQCacheConfig(bs=1, nh_k=2, d=16, M=8, C=512)
 
 
 def test_cache_memory_bytes():

@@ -138,7 +138,7 @@ def test_stats_account_for_the_pool(rng):
 
 
 def test_config_rejects_wide_codes_and_ragged_pages():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="8-bit codes in both packages"):
         tpc.PagedPQCacheConfig(**{**GEOM, "C": 512})
     with pytest.raises(ValueError, match="multiples of 4"):
         tpc.PagedPQCacheConfig(**{**GEOM, "page_size": 130})

@@ -4,7 +4,7 @@ prefill_update, decode_update, flush_window) against million_tpu's
 
 Both packages get the same f32 K/V and codebooks (numpy, from the seed): a
 prefill of n tokens with n % 4 in {0, 1, 3}, then decode tokens one at a time
-across a full-window flush. Held: the residual windows equal, r and n_codes
+across a full-window flush, at C = 32 (uint8 codes) and C = 512 (int16). Held: the residual windows equal, r and n_codes
 equal, codes equal on >= 99 % (both encode "fast", bf16-rounded; a tie may
 fall the other way), and the attention over the resulting cache (the codes
 partial LSE-merged with the r live residual rows) within 1e-4, each package
@@ -24,13 +24,13 @@ from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention
 BS, NH_K, G, D, M, C, LT, N_MAX = 2, 2, 2, 16, 8, 32, 8, 64
 
 
-def configs():
+def configs(C=C):
     kw = dict(bs=BS, nh_k=NH_K, d=D, M=M, C=C, Lt=LT, N_max=N_MAX)
     return jc.PQCacheConfig(**kw, dtype=jnp.float32), tc.PQCacheConfig(**kw, dtype=torch.float32)
 
 
 def compare(jst, tst, cents, q):
-    words = {k: convert.arena_from_words(np.asarray(jst[k])) for k in ("key_codes", "value_codes")}
+    words = {k: convert.arena_from_numpy(np.asarray(jst[k])) for k in ("key_codes", "value_codes")}
     for k in ("key_residual", "value_residual"):
         np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]))
     assert (tst["n_codes"], tst["r"]) == (int(jst["n_codes"]), int(jst["r"]))
@@ -51,13 +51,14 @@ def with_codes_t(jst):
     """The reference oracle takes unpacked (bs, nh_k, M, N) codes."""
     out = dict(jst)
     for k in ("key_codes", "value_codes"):
-        out[k + "_t"] = jnp.asarray(convert.unpack_codes(np.asarray(jst[k])))
+        out[k + "_t"] = jc.load_codes_t(jst[k])
     return out
 
 
+@pytest.mark.parametrize("C", [C, 512])
 @pytest.mark.parametrize("n", [12, 13, 15])
-def test_prefill_then_decode_across_a_flush(rng, n):
-    jcfg, tcfg = configs()
+def test_prefill_then_decode_across_a_flush(rng, n, C):
+    jcfg, tcfg = configs(C)
     cents = [rng.standard_normal((M, C, D // M)).astype(np.float32) for _ in range(2)]
     q = rng.standard_normal((BS, NH_K, G, D)).astype(np.float32)
     k = rng.standard_normal((BS, NH_K, n, D)).astype(np.float32)
@@ -86,6 +87,8 @@ def test_flush_window_and_guards(rng):
     cents = [torch.from_numpy(rng.standard_normal((M, C, D // M)).astype(np.float32)) for _ in range(2)]
     st = tc.init_layer_state(tcfg, device="cpu")
     assert st["key_codes"].shape == (BS, NH_K, N_MAX, M) and "key_outliers" not in st
+    assert st["key_codes"].dtype == torch.uint8
+    assert tc.init_layer_state(configs(512)[1], device="cpu")["key_codes"].dtype == torch.int16
     st["key_residual"].normal_()
     st["value_residual"].normal_()
     st["r"] = LT

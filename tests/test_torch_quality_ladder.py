@@ -8,8 +8,8 @@ repository's markdown, and over its 2 x 511 positions the k-means seed
 can move Δppl across 0 (on this tree `python -m
 million_tpu.benchmarks.quality_ladder --fast --windows 2` itself gives a
 negative Δppl). The envelope's upper bounds are what a broken encode or
-codebook would cross. Rungs the port cannot run yet (nbits > 8, wide codes)
-raise NotImplementedError; the OPQ rung runs (tests/test_torch_opq.py)."""
+codebook would cross; the wide rungs (nbits 9-12, int16 codes) are held to
+the same relative bound. The OPQ rung runs in tests/test_torch_opq.py."""
 
 import json
 
@@ -62,22 +62,42 @@ def test_dppl_nbits8_in_envelope(one_thread):
 
 @pytest.mark.parametrize("rung", [dict(M_k=16, nbits_k=9), dict(M_k=16, nbits_k=8, M_v=8, nbits_v=10)],
                          ids=["nbits9", "nbits_v10"])
-def test_later_rungs_raise(tiny_lm, rung):
+def test_later_rungs_raise(tiny_lm, rung, one_thread):
+    """The wide rungs run (they raised before wide codes were ported): a
+    symmetric nbits 9 rung and an asymmetric one whose V side is nbits 10,
+    on the tiny model's own K/V, each on int16 arenas, within the nbits=8
+    rung's 7 % relative envelope of the dense ppl."""
+    import torch
+
+    from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
+
     params, cfg = tiny_lm
-    kv = np.zeros((cfg.num_layers, 300, cfg.head_dim), np.float16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tql.ladder_rung(params, cfg, np.zeros(1025, np.int32), kv, kv, **rung)
+    tokens = tql.build_corpus()
+    kv_k, kv_v = tql.sample_kv(params, cfg, tokens[:8 * 512], windows=8, ctx=512)
+    ev = tokens[-(1 << 16):]
+    dense = tql.dense_perplexity(params, cfg, ev, max_length=512, max_windows=1)["ppl"]
+    row = tql.ladder_rung(params, cfg, ev, kv_k, kv_v, max_length=512, max_windows=1, train_iters=3, **rung)
+    want_v = (rung.get("M_v", rung["M_k"]), rung.get("nbits_v", rung["nbits_k"]))
+    assert (row["M"], row["nbits"], row["M_v"], row["nbits_v"]) == (rung["M_k"], rung["nbits_k"], *want_v)
+    assert np.isfinite(row["ppl"]) and row["ppl"] / dense < 1.07, (row["ppl"], dense)
+    cents = tql.rung_cents(cfg, kv_k, kv_v, train_iters=1, device="cpu", **rung)
+    assert cents["value"].shape[2] == 2 ** want_v[1]
+    cache = init_state(PQCacheConfig(bs=1, nh_k=cfg.num_kv_heads, d=cfg.head_dim, M=rung["M_k"],
+                                     M_v=want_v[0], C=2 ** max(rung["nbits_k"], want_v[1])), 1, "cpu")
+    assert cache["key_codes"].dtype == cache["value_codes"].dtype == torch.int16
 
 
 def test_full_ladder_rungs():
-    """The full ladder lists the reference's rungs, so it reaches the nbits 9
-    rung and raises there rather than skipping it."""
+    """The full ladder lists the reference's rungs, the nbits 9-12 rungs at
+    M = d/2 among them, and the coarse sweep the M = d/4 rungs at nbits
+    8-12."""
     from million_tpu_torch.benchmarks.tiny_lm import QUALITY_CFG
 
     rungs = tql.ladder_rungs(QUALITY_CFG)
     assert [r["nbits_k"] for r in rungs[:5]] == [8, 9, 10, 11, 12]
     assert sum(bool(r.get("opq")) for r in rungs) == 1 and len(rungs) == 11
     assert tql.ladder_rungs(QUALITY_CFG, fast=True) == [dict(M_k=16, nbits_k=8)]
+    assert tql.ladder_rungs(QUALITY_CFG, coarse_sweep=True) == [dict(M_k=8, nbits_k=nb) for nb in range(8, 13)]
 
 
 def test_main_appends_to_the_port_ledger(tmp_path, monkeypatch):
