@@ -8,6 +8,8 @@
     python3 chip_smoke.py --sessions-only # the build, then the long-context, mixed-serving and
                                           # checkpoint phases alone, no result line
     python3 chip_smoke.py --wide-only     # the build, then fault C.10's wide phase alone, no result line
+    python3 chip_smoke.py --mesh-only     # the build, then the mesh phase alone, no result line
+    python3 chip_smoke.py --train-only    # the build, then the trainer phase alone, no result line
 
 Phases, each printed as it ends; any failure exits non-zero and prints no
 result line:
@@ -145,11 +147,35 @@ result line:
        rung's Lloyd steps and prefill encodes also held against the plain
        version at their own shapes, and quality_bench at its defaults; the
        pipeline at pq.nbits=10 with its own Lloyd steps held the same way;
+     - kernel_bench (benchmarks/kernel_bench.py, after the kernel phases):
+       B2's parity against SDPA over decoded K / V at 32,768 codes, its time
+       there beside the dense bf16 step, with 16 + 16 exact channels, each
+       timed call also held against the plain version (KERNEL_TOL);
+     - the mesh (after the checkpoint phase): llama-3.2-3b at full width,
+       dm2 and dm4_outlier_c128, two ranks spawned on the one card (gloo:
+       all-reduce and broadcast on the card, all-gather and the ring's send /
+       recv through the host): (a) sp = 2 prefill_sp of a 16,384-token prompt
+       and 64 decode steps (3 window flushes), (b) tp = 2 the flat prefill
+       and the same steps, (c) a ShardedScheduler at sp = 2 over four
+       8,192-token requests (one chunked group admission, a session saved
+       after 8 ticks and resumed on the mesh, 64 ticks, teacher-forced
+       throughout, the logits held at the admission, the first tick, both
+       sides of the save and the resume and the last tick); each held
+       against this process's single-rank run of the same inputs
+       (teacher-forced logits within LOGIT_TOL, greedy agreement printed),
+       and the single-rank (a) held to the flat prefill and decode fed the
+       same tokens, the ranks' kernel launches added to the kernels line;
+       (d) (a) on a 1-rank NCCL group in
+       this process; (e) dryrun_multichip(4) at tiny shapes on the card;
+     - the trainer (last): benchmarks/tiny_lm.train_tiny_lm on the card,
+       200 steps of the tiny quality LM and 4 of the large one, a save /
+       load round trip and the loaded model's perplexity;
   6. a JSON line of the kernels (with [dm16] entries: fault C.9's d_m = 16
      builds, timed in its kernel phase and launched by its paths, and
      pq_encode[wide_*] entries: B7's wide build, launched by the wide
      phase's drives), then the card line, then the result line.
-It needs no network and starts no process but nvidia-smi and nvcc.
+It needs no network; it starts nvidia-smi, nvcc, and the mesh phase's rank
+processes (spawned, joined before the phase ends).
 """
 
 from __future__ import annotations
@@ -246,6 +272,15 @@ WIDE_GEOMETRIES = {
     "wide_dm4_c4096": dict(M=32, C=4096, O=0),
 }
 ALL_GEOMETRIES = {**GEOMETRIES, **C9_GEOMETRIES, **C9_GENERIC, **WIDE_GEOMETRIES}
+# the trainer phase: QUALITY_CFG's steps (its own bs 8, ctx 256), then QUALITY_CFG_L's few (bs 16, ctx 1,024)
+TRAIN_STEPS, TRAIN_L_STEPS = 200, 4
+KB_N, KB_OUTLIERS = 32768, 16  # kernel_bench: --n 32768 --outliers 16
+# the mesh phase: (a) / (b) / (d) one 16,384-token prompt, 64 new tokens through 16-row windows (3
+# flushes) in an arena of 17,408 codes (8,704 a sequence shard at sp = 2); (c) four 8,192-token requests,
+# 65 tokens each (64 ticks), 32-row windows, a session saved after 8 ticks
+MESH = dict(preset="llama-3.2-3b", prompt=16384, new=64, lt=16, n_max=17408,
+            serve_prompt=8192, serve_new=65, serve_lt=32, save_after=8, page=2048, pages_per_seq=6,
+            n_pages=24, admit_chunk=2048)
 C9_PROMPT, C9_NEW_TOKENS = 4096, 160  # the d_m = 16 flat generate: bs = 1, window flushes
 # the target-set sweep's B3 limits at its short history (1,000 tokens, so a weight is larger than at
 # the phases' 28,672): those of the repo's small-shape kernel tests, tests/test_torch_chunk_attention.py
@@ -2317,6 +2352,395 @@ def wide_phase(dev, card, launches):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the last modules of the pipeline (the trainer, kernel_bench) and the mesh
+# --------------------------------------------------------------------------
+
+def train_phase(dev, card):
+    """The quality LM's trainer (benchmarks/tiny_lm.train_tiny_lm) on the
+    card: QUALITY_CFG for TRAIN_STEPS steps at its own batch and context on
+    build_corpus(), then a few steps of QUALITY_CFG_L at bs 16 and ctx 1,024
+    on the same text; the loss at the start and the end and the time a step;
+    a save / load round trip of the trained model (the reference's layout)
+    and the dense perplexity of the loaded model on the held-out tail
+    (benchmarks/perplexity.py)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.benchmarks import tiny_lm
+    from million_tpu_torch.benchmarks.perplexity import perplexity
+    from million_tpu_torch.cache.dense_cache import DenseCacheConfig, init_dense_state
+
+    tokens = tiny_lm.build_corpus()
+    holdout = 1 << 16
+    for name, cfg, steps, bs, ctx in (("QUALITY_CFG", tiny_lm.QUALITY_CFG, TRAIN_STEPS, 8, 256),
+                                      ("QUALITY_CFG_L", tiny_lm.QUALITY_CFG_L, TRAIN_L_STEPS, 16, 1024)):
+        losses = []
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, _ = tiny_lm.train_tiny_lm(tokens, cfg, steps=steps, bs=bs, ctx=ctx, holdout=holdout,
+                                          log_every=0, device=dev, losses=losses)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        log(f"[train] {name}: {steps} steps at bs {bs}, ctx {ctx} on {len(tokens)} bytes: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} nats, {dt / steps * 1e3:.2f} ms a step "
+            f"({dt:.2f} s, the first step included); {card}")
+        if not np.isfinite(losses).all() or (name == "QUALITY_CFG" and losses[-1] > losses[0] - 1.0):
+            raise RuntimeError(f"training check failed for {name}")
+        if name != "QUALITY_CFG":
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "tiny_lm.npz"
+            tiny_lm.save_checkpoint(params, cfg, path)
+            loaded, cfg2 = tiny_lm.load_checkpoint(path, device=dev)
+        same = cfg2 == cfg and all(torch.equal(a, b) for a, b in zip(tiny_lm._leaves(loaded),
+                                                                      tiny_lm._leaves(params)))
+        dense = DenseCacheConfig(bs=1, nh_k=cfg.num_kv_heads, d=cfg.head_dim, N_max=ctx, dtype=torch.float32)
+        ppl = perplexity(loaded, cfg2, tokens[-holdout:], lambda: init_dense_state(dense, cfg.num_layers, device=dev),
+                         None, mode="dense", max_length=ctx, max_windows=32)
+        log(f"[train] {name}: save / load round trip bit-equal: {same}; dense perplexity of the loaded "
+            f"model on the {holdout}-byte held-out tail: {ppl['ppl']:.3f} over {ppl['windows']} windows of "
+            f"{ctx} (exp of the first loss {np.exp(losses[0]):.1f})")
+        if not same or not ppl["ppl"] < np.exp(losses[0]):
+            raise RuntimeError("checkpoint round trip or perplexity check failed")
+
+
+def kernel_bench_phase(dev, card, launches):
+    """benchmarks/kernel_bench.py at its default shape (one sequence, 8 KV
+    heads, G = 8, dm2) with --n 32768, --parity-n 32768 and --outliers 16:
+    B2's MAE against SDPA over the decoded K / V at the timed length, its
+    time beside the dense bf16 step's, and the stacked entry with 16 + 16
+    exact channels; each timed call held against the plain version. Adds the launches of B2
+    (and of B1, whose counter counts every launch of the kernel) to dm2's
+    count."""
+    from million_tpu_torch.benchmarks import kernel_bench
+    from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention, pq_codes_attention_stacked
+
+    pq_codes_attention.launches = pq_codes_attention_stacked.launches = 0
+    r = kernel_bench.bench(n=KB_N, parity_n=KB_N, outliers=KB_OUTLIERS, device=dev)
+    launches["pq_decode_attention"]["dm2"]["kernel_bench"] = pq_codes_attention_stacked.launches
+    log(f"[kernel_bench] B2 parity at {r['n_codes']} codes: MAE {r['mae']:.3g}, max {r['max_abs_err']:.3g}; "
+        f"n={r['n']}: kernel {r['kernel_ms']:.4f} ms ({r['kernel_GBps']:.0f} GB/s over the codes), dense "
+        f"bf16 SDPA {r['dense_ms']:.4f} ms ({r['speedup']:.2f}x), with {KB_OUTLIERS} + {KB_OUTLIERS} exact "
+        f"channels {r['outlier_ms']:.4f} ms; the timed calls against the plain version: max abs err "
+        f"{r['timed_max_abs_err']:.3g}, with the channels {r['outlier_max_abs_err']:.3g} (tol {KERNEL_TOL}); "
+        f"B2 launches {pq_codes_attention.launches}; {card}")
+    if (r["mae"] > 1e-4 or pq_codes_attention.launches <= 0
+            or max(r["timed_max_abs_err"], r["outlier_max_abs_err"]) > KERNEL_TOL):
+        raise RuntimeError("kernel_bench check failed")
+    return r
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_cache(cfg, geom, dev, m):
+    from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
+
+    g = GEOMETRIES[geom]
+    return init_state(PQCacheConfig(bs=1, nh_k=cfg.num_kv_heads, d=cfg.head_dim, M=g["M"], C=g["C"], Lt=m["lt"],
+                                    N_max=m["n_max"], OK=g["O"], OV=g["O"], dtype=cfg.dtype),
+                      cfg.num_layers, device=dev)
+
+
+def mesh_generate(params, cfg, ids, cache, cents, mesh, route, n_new, tokens=None):
+    """Prefill (route "sp": prefill_sp; "flat": the flat prefill), then n_new
+    decode steps in mode "pq_kernel" with full-window flushes; the steps are
+    fed `tokens` (teacher forcing) or their own greedy tokens. Returns the
+    logits of every step (n_new + 1, V) f32 on the host, the tokens fed, the
+    prefill wall and the decode wall a step (host clock, synchronised)."""
+    import torch
+
+    from million_tpu_torch.models import llama
+    from million_tpu_torch.parallel.sp_prefill import prefill_sp
+
+    dev = ids.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    if route == "sp":
+        last = prefill_sp(params, cfg, ids, cache, cents, mesh)
+    else:
+        last = llama.prefill(params, cfg, ids, cache, cents, last_logit_only=True, mesh=mesh)[:, -1]
+    _sync(dev)
+    t1 = time.perf_counter()
+    logits, fed, flushes = [last[0]], [], 0
+    n = ids.shape[1]
+    for t in range(n_new):
+        tok = last.argmax(-1) if tokens is None else torch.tensor([int(tokens[t])], device=dev)
+        fed.append(int(tok[0]))
+        if cache["r"] >= cache["key_residual"].shape[3]:
+            llama.flush_windows(cache, cents, mesh=mesh)
+            flushes += 1
+        last = llama.decode_step(params, cfg, tok, n + t, cache, cents, mode="pq_kernel", mesh=mesh)
+        logits.append(last[0])
+    _sync(dev)
+    t2 = time.perf_counter()
+    return torch.stack(logits).float().cpu().numpy(), fed, t1 - t0, (t2 - t1) / n_new, flushes
+
+
+def _recording_sampler(sched, rec, forced):
+    """Wrap sched's sampler: each call samples as the scheduler does (greedy;
+    on a mesh rank 0 samples and broadcasts), records that token and the
+    logits (all of them, or the calls in forced["keep"]), and returns it, or
+    with `forced` the reference's token of the same call (teacher forcing)."""
+    import torch
+
+    own = sched._sample
+
+    def sample(logits):
+        i = len(rec["tokens"])
+        tok = own(logits)
+        rec["tokens"].append(tok.cpu().numpy())
+        if forced is None or i in forced["keep"]:
+            rec["logits"][i] = logits.float().cpu().numpy()
+        return tok if forced is None else torch.as_tensor(forced["tokens"][i], device=tok.device)
+
+    sched._sample = sample
+
+
+def mesh_serve(params, cfg, cents, geom, dev, mesh, prompts, path, m, forced=None):
+    """(c): a (Sharded)Scheduler over the prompts in m["page"]-token pages,
+    admitted as one chunked group, m["save_after"] ticks, the session saved
+    to `path`, dropped, loaded (on the mesh) and run to the end. Every
+    sampling call (the admission's, then one a tick) is recorded through
+    _recording_sampler; with `forced` (the single-rank run's tokens) the
+    run is teacher-forced across the save and the resume. Returns the
+    record (tokens and logits by call, the calls before the save), the
+    finished tokens by request and the walls."""
+    from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
+    from million_tpu_torch.runtime.checkpoint import load_session, save_session
+    from million_tpu_torch.runtime.scheduler import Request, Scheduler, ShardedScheduler
+
+    g = GEOMETRIES[geom]
+    pcfg = PagedPQCacheConfig(num_layers=cfg.num_layers, nh_k=cfg.num_kv_heads, d=cfg.head_dim, M=g["M"],
+                              C=g["C"], Lt=m["serve_lt"], page_size=m["page"], n_pages=m["n_pages"],
+                              max_seqs=len(prompts), pages_per_seq=m["pages_per_seq"], OK=g["O"], OV=g["O"],
+                              dtype=cfg.dtype)
+    kw = dict(admit_chunk=m["admit_chunk"], admit_batch=8, tick_chain=1)
+    sched = (Scheduler(params, cfg, pcfg, cents, device=dev, **kw) if mesh is None
+             else ShardedScheduler(params, cfg, pcfg, cents, mesh=mesh, **kw))
+    rec = {"tokens": [], "logits": {}}
+    _recording_sampler(sched, rec, forced)
+    for rid, p in enumerate(prompts):
+        sched.submit(Request(rid, p, m["serve_new"]))
+    _sync(dev)
+    t0 = time.perf_counter()
+    sched._try_admit()
+    sched.drain()
+    _sync(dev)
+    t_admit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(m["save_after"]):
+        sched.step()
+    save_session(path, sched)
+    rec["n_pre"] = len(rec["tokens"])
+    del sched
+    sched = load_session(path, params, cfg, pcfg, cents, device=dev, mesh=mesh)
+    _recording_sampler(sched, rec, forced)
+    done = {f.rid: f.tokens for f in sched.run_to_completion()}
+    _sync(dev)
+    t_serve = time.perf_counter() - t0
+    return rec, done, t_admit, t_serve
+
+
+def mesh_model(m, dev):
+    """The mesh phase's model: m["preset"] at full width, random weights from
+    seed 0 on `dev` (on the card the same weights as build_model's)."""
+    import dataclasses
+
+    import torch
+
+    from million_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.PRESETS[m["preset"]], **m.get("cfg", {}))
+    return cfg, llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def mesh_rank(rank, spec):
+    """One rank of the 2-rank mesh phase on the shared card (gloo): for each
+    geometry (a) prefill_sp and m["new"] teacher-forced steps at sp = 2, (b)
+    the flat prefill and the same steps at tp = 2, (c) the ShardedScheduler at
+    sp = 2, teacher-forced with the parent's tokens across its save and
+    resume; each against the parent's single-rank logits. Returns the logit
+    gaps, the greedy agreements, the walls, the kernels' launches and the
+    collectives' routes."""
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.parallel.mesh import make_mesh, shard_cache, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = spec["m"]
+    dev = torch.device(spec["device"])
+    cfg, params = mesh_model(m, dev)
+    sp_mesh, tp_mesh = make_mesh(sp=2, device=dev), make_mesh(tp=2, device=dev)
+    tp_params = shard_params(params, tp_mesh)
+    wrappers = path_wrappers()
+    ids = torch.from_numpy(spec["ids"]).to(dev)
+    out = {}
+    for geom, ref in spec["refs"].items():
+        cents = cents_from_numpy(ref["cents"], device=dev)
+        for w in wrappers.values():
+            w.launches = 0
+        res = {}
+        for case, mesh, prm, route in (("a", sp_mesh, params, "sp"), ("b", tp_mesh, tp_params, "flat")):
+            cache = shard_cache(_mesh_cache(cfg, geom, dev, m), mesh)
+            lg, _, t_pre, t_step, flushes = mesh_generate(prm, cfg, ids, cache, cents, mesh, route, m["new"],
+                                                          ref[case]["tokens"])
+            want = ref[case]["logits"]
+            res[case] = {"gap": float(abs(lg - want).max()), "finite": bool(np.isfinite(lg).all()),
+                         "agree": float((lg[1:].argmax(-1) == want[1:].argmax(-1)).mean()),
+                         "prefill_s": t_pre, "step_ms": t_step * 1e3, "flushes": flushes}
+            del cache
+        want = ref["c"]
+        rec, done, t_admit, t_serve = mesh_serve(params, cfg, cents, geom, dev, sp_mesh, spec["prompts"],
+                                                 f"{spec['dir']}/{geom}.npz", m, want)
+        gaps = {i: float(abs(rec["logits"][i] - want["logits"][i]).max()) for i in sorted(want["keep"])}
+        res["c"] = {"gap": max(gaps.values()), "gaps": gaps,
+                    "finite": all(bool(np.isfinite(x).all()) for x in rec["logits"].values()),
+                    "agree": float(np.mean([np.mean(a == b) for a, b in zip(rec["tokens"], want["tokens"])])),
+                    "complete": (rec["n_pre"] == want["n_pre"] and len(rec["tokens"]) == len(want["tokens"])
+                                 and sorted(done) == sorted(want["done"])
+                                 and all(np.array_equal(done[r], want["done"][r]) for r in want["done"])),
+                    "admit_s": t_admit, "serve_s": t_serve}
+        res["launches"] = {k: w.launches for k, w in wrappers.items()}
+        out[geom] = res
+    out["routes"] = {"sp": dict(sp_mesh.routes), "tp": dict(tp_mesh.routes)}
+    return out
+
+
+def mesh_phase(dev, cfg, params, launches, card):
+    """The mesh paths at full llama-3.2-3b width, dm2 and dm4_outlier_c128:
+    the parent's single-rank runs, then 2 ranks spawned on the card (gloo:
+    all-reduce and broadcast on the card, all-gather and send / recv through
+    the host) running (a) sp = 2 prefill_sp of a MESH["prompt"]-token prompt
+    and MESH["new"] decode steps (3 flushes), (b) tp = 2 the flat prefill and
+    the same steps, (c) a ShardedScheduler at sp = 2 over four
+    MESH["serve_prompt"]-token requests (a chunked group admission, a session
+    saved after MESH["save_after"] ticks and resumed on the mesh, the ranks
+    fed the parent's tokens throughout: the logits at the admission, the
+    first tick, both sides of the save and the resume and the last tick
+    compared, the finished streams equal); each held against the parent's
+    run of the same inputs: the teacher-forced logits within LOGIT_TOL, the
+    greedy agreement printed. The parent's (a) (prefill_sp on a one-rank
+    mesh) is also held to its (b) (the flat prefill), fed the same tokens,
+    within LOGIT_TOL. Then (d) (a) at dm2 on a 1-rank NCCL group in the parent, and (e)
+    dryrun_multichip(4) at tiny shapes. The ranks' launches add to the
+    kernels line's counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from million_tpu_torch.convert import cents_from_numpy
+    from million_tpu_torch.dryrun import dryrun_multichip
+    from million_tpu_torch.parallel import distributed
+    from million_tpu_torch.parallel.launch import run_ranks
+    from million_tpu_torch.parallel.mesh import make_mesh
+
+    m = MESH
+    rng = np.random.default_rng(31)
+    ids_np = rng.integers(0, cfg.vocab_size, (1, m["prompt"]))
+    prompts = [rng.integers(0, cfg.vocab_size, m["serve_prompt"]) for _ in range(4)]
+    ids = torch.from_numpy(ids_np).to(dev)
+    refs = {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for geom in PATH_GEOMETRIES:
+            cents_np = synthetic_cents(cfg.num_layers, cfg.head_dim, geom, seed=33)
+            cents = cents_from_numpy(cents_np, device=dev)
+            ref = {"cents": cents_np}
+            # (a)'s route greedy, then (b)'s flat route teacher-forced with its tokens: the two
+            # single-rank routes must agree step for step
+            for case, mesh, route in (("a", make_mesh(device=dev), "sp"), ("b", None, "flat")):
+                lg, fed, t_pre, t_step, _ = mesh_generate(params, cfg, ids, _mesh_cache(cfg, geom, dev, m),
+                                                          cents, mesh, route, m["new"],
+                                                          ref["a"]["tokens"] if case == "b" else None)
+                ref[case] = {"logits": lg, "tokens": fed, "prefill_s": t_pre, "step_ms": t_step * 1e3}
+            ref["sp_vs_flat"] = float(abs(ref["a"]["logits"] - ref["b"]["logits"]).max())
+            rec, done, t_admit, t_serve = mesh_serve(params, cfg, cents, geom, dev, None, prompts,
+                                                     f"{tmp}/ref_{geom}.npz", m)
+            # the logits the ranks are held to: the admission, the first tick, the ticks on both
+            # sides of the save and the resume, the last tick
+            n_pre, n_all = rec["n_pre"], len(rec["tokens"])
+            keep = {0, 1, n_pre - 1, n_pre, n_pre + 1, n_all - 1}
+            ref["c"] = {"tokens": rec["tokens"], "logits": {i: rec["logits"][i] for i in keep}, "keep": keep,
+                        "n_pre": n_pre, "done": done, "admit_s": t_admit, "serve_s": t_serve}
+            refs[geom] = ref
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_all
+        t0 = time.perf_counter()
+        spec = {"ids": ids_np, "prompts": prompts, "dir": tmp, "m": m, "device": dev.type, "refs": refs}
+        res = run_ranks(mesh_rank, 2, (spec,), device=dev.type, work_dir=tmp, threads=0)
+        t_ranks = time.perf_counter() - t0
+    ok = True
+    for geom in PATH_GEOMETRIES:
+        ref = refs[geom]
+        log(f"[mesh] {geom} 1 rank: prefill_sp + decode against the flat prefill + decode fed the same "
+            f"tokens, max logit gap over the {m['new'] + 1} steps {ref['sp_vs_flat']:.4g} (tol {LOGIT_TOL})")
+        ok &= ref["sp_vs_flat"] <= LOGIT_TOL
+        for rank, r in enumerate(res):
+            rr = r[geom]
+            for case, what in (("a", "sp=2 prefill_sp + decode"), ("b", "tp=2 flat prefill + decode"),
+                               ("c", "sp=2 ShardedScheduler")):
+                x = rr[case]
+                if case == "c":
+                    walls = (f"gap by sampling call {x['gaps']} (call {ref['c']['n_pre']} is the first after "
+                             f"the resume); admission {x['admit_s']:.2f} s (1 rank {ref['c']['admit_s']:.2f} s), "
+                             f"{m['save_after']} ticks + save + resume + the rest {x['serve_s']:.2f} s "
+                             f"(1 rank {ref['c']['serve_s']:.2f} s), streams complete and equal {x['complete']}")
+                else:
+                    walls = (f"prefill {x['prefill_s']:.2f} s (1 rank {ref[case]['prefill_s']:.2f} s), "
+                             f"{x['step_ms']:.2f} ms a step (1 rank {ref[case]['step_ms']:.2f} ms), "
+                             f"{x['flushes']} flushes")
+                log(f"[mesh] {geom} ({case}) rank {rank} {what}: teacher-forced max logit gap vs 1 rank "
+                    f"{x['gap']:.4g} (tol {LOGIT_TOL}), greedy agreement {x['agree']:.3f}; {walls}")
+                ok &= x["finite"] and x["gap"] <= LOGIT_TOL and x.get("complete", True) and x.get("flushes", 3) >= 2
+        got = res[0][geom]["launches"]
+        for k in got:
+            launches[k][geom]["mesh"] = sum(r[geom]["launches"][k] for r in res)
+        log(f"[mesh] {geom}: the ranks' launches {{kernel: rank 0 + rank 1}}: "
+            f"{ {k: [r[geom]['launches'][k] for r in res] for k in got} }")
+    log(f"[mesh] collectives' routes (2 ranks on one card): {res[0]['routes']}; the single-rank runs "
+        f"{t_ref:.1f} s, the ranks' spawn and runs {t_ranks:.1f} s; {card}")
+    if not ok:
+        raise RuntimeError("mesh check failed")
+
+    # (d) the sp route on a 1-rank NCCL group, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(0, 1, f"file://{tmp}/store", device=dev.type)
+        try:
+            mesh = make_mesh(device=dev)
+            for w in path_wrappers().values():
+                w.launches = 0
+            for geom in PATH_GEOMETRIES[:1]:  # the route is the geometry's business of neither
+                cents = cents_from_numpy(refs[geom]["cents"], device=dev)
+                lg, _, t_pre, t_step, _ = mesh_generate(params, cfg, ids, _mesh_cache(cfg, geom, dev, m), cents,
+                                                        mesh, "sp", m["new"], refs[geom]["a"]["tokens"])
+                gap = float(abs(lg - refs[geom]["a"]["logits"]).max())
+                log(f"[mesh] {geom} (d) 1-rank NCCL group, prefill_sp + decode: max logit gap vs the run "
+                    f"without a group {gap:.4g}; prefill {t_pre:.2f} s, {t_step * 1e3:.2f} ms a step; "
+                    f"routes {mesh.routes}")
+                if gap > LOGIT_TOL or set(mesh.routes.values()) != {distributed.backend()}:
+                    raise RuntimeError("NCCL mesh check failed")
+            for k, w in path_wrappers().items():
+                launches[k][PATH_GEOMETRIES[0]]["mesh-nccl"] = w.launches
+        finally:
+            distributed.shutdown()
+    # (e) the dry run at tiny shapes, 4 ranks on the card
+    t0 = time.perf_counter()
+    dryrun_multichip(4, dev.type)
+    log(f"[mesh] (e) dryrun_multichip(4) on the card: {time.perf_counter() - t0:.1f} s; the mesh phase "
+        f"{time.perf_counter() - t_all:.1f} s")
+
+
 def build_model(dev):
     """llama-3.2-3b at full width and depth, random bf16 weights from seed 0."""
     import torch
@@ -2503,6 +2927,13 @@ def main() -> int:
     if "--wide-only" in sys.argv[1:]:
         wide_phase(dev, card, wide_launches)
         return 0
+    if "--train-only" in sys.argv[1:]:
+        train_phase(dev, card)
+        return 0
+    if "--mesh-only" in sys.argv[1:]:
+        cfg, params = build_model(dev)
+        mesh_phase(dev, cfg, params, {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}, card)
+        return 0
     only = {a for a in sys.argv[1:] if a in ("--c9-only", "--sessions-only")}
     if only:  # fault C.9's phases and / or the long-context, mixed-serving and checkpoint phases
         if "--c9-only" in only:
@@ -2528,11 +2959,12 @@ def main() -> int:
     c9_rows = c9_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:
         return 0
+    launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
+    kernel_bench_phase(dev, card, launches)
     tiny_check(dev)
     tiny_serving_check(dev)
     cfg, params = build_model(dev)
     c1_phase(dev, cfg, params)
-    launches = {k: {g: {} for g in PATH_GEOMETRIES} for k in KERNELS}
     main_path(dev, cfg, params, launches)
     c9_launches = {k: {} for k in KERNELS}
     c9_paths(dev, cfg, params, c9_launches)
@@ -2540,11 +2972,13 @@ def main() -> int:
     long_context_phase(dev, cfg, params, launches, card)
     mixed_phase(dev, cfg, params, launches, card)
     checkpoint_phase(dev, cfg, params, launches, card)
+    mesh_phase(dev, cfg, params, launches, card)
     del params
     torch.cuda.empty_cache()
     quality_path(dev, launches, card)
     pipeline_path(dev, launches, card)
     wide_rows = wide_phase(dev, card, wide_launches)
+    train_phase(dev, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,11 +1,19 @@
-"""The quality contract's byte-level LMs: their configurations, their text
-and their pinned checkpoints.
+"""The quality contract's byte-level LMs: their configurations, their text,
+their trainer and their pinned checkpoints.
 
-Counterpart of million_tpu/benchmarks/tiny_lm.py without its training
-(`train_tiny_lm`, `save_checkpoint`): the checkpoints under
+Counterpart of million_tpu/benchmarks/tiny_lm.py. The checkpoints under
 artifacts/quality/ were trained by the reference package and load here
-unchanged. A random-init model measures nothing about quantization (its
-logits are near-uniform), so the quality ladder runs on these.
+unchanged; `train_tiny_lm` trains the same models in the port (autograd and
+torch.optim.AdamW with optax's chain reproduced: global-norm clipping at 1.0
+without an epsilon, AdamW with b1 0.9, b2 0.999, eps 1e-8 and weight decay
+1e-4 on every leaf, a cosine schedule to 0.1 lr evaluated at step t for the
+t-th update) on the reference's windows (the same np.random.default_rng
+draws), and `save_checkpoint` writes the reference's layout, so that each
+package loads the other's files. A random-init model measures nothing about
+quantization (its logits are near-uniform), so the quality ladder runs on
+these.
+
+    python -m million_tpu_torch.benchmarks.tiny_lm [--model tiny|large] [--steps N] [--device cpu]
 
 The text: `build_corpus` (this repository's docs and sources; the d=32
 model's held-out tail) and `build_corpus_v2` (the host's Python library text,
@@ -17,17 +25,21 @@ training text.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import sys
+import time
 from pathlib import Path
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from million_tpu_torch import resolve_device
 from million_tpu_torch.convert import params_from_numpy
-from million_tpu_torch.models.llama import ModelConfig
+from million_tpu_torch.models.llama import ModelConfig, init_params, loss_fn
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -177,3 +189,121 @@ def load_checkpoint(path: Path | None = None, device="cuda"):
             node = node.setdefault(p, {})
         node[leaf] = z[key]
     return params_from_numpy(tree, torch.float32, device), cfg
+
+
+def cosine_lr(lr: float, steps: int, t: int, alpha: float = 0.1) -> float:
+    """optax.cosine_decay_schedule(lr, steps, alpha) at step t."""
+    frac = min(t, steps) / steps
+    return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * frac)) + alpha)
+
+
+def _leaves(params):
+    return [params[k] for k in sorted(params) if k != "layers"] + [
+        params["layers"][k] for k in sorted(params["layers"])]
+
+
+def clip_by_global_norm(grads, max_norm: float = 1.0) -> torch.Tensor:
+    """optax.clip_by_global_norm, in place: g / norm * max_norm where the
+    global norm reaches max_norm (no epsilon). Returns the norm."""
+    norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    return norm
+
+
+def train_tiny_lm(
+    tokens: np.ndarray,
+    cfg: ModelConfig = QUALITY_CFG,
+    *,
+    steps: int = 2000,
+    bs: int = 8,
+    ctx: int = 256,
+    lr: float = 3e-3,
+    seed: int = 0,
+    holdout: int = 1 << 16,
+    log_every: int = 200,
+    params: Optional[dict] = None,  # initial weights (None: init_params from `seed`)
+    device="cuda",
+    losses: Optional[list] = None,  # appended each step's loss (a host float), when given
+):
+    """AdamW + cosine training on random windows of tokens[:-holdout].
+    Returns (params, final_train_loss_nats)."""
+    dev = resolve_device(device)
+    train_tokens = tokens[:-holdout]
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    rng = np.random.default_rng(seed)
+    loss = torch.tensor(float("nan"))
+    for i in range(steps):
+        starts = rng.integers(0, len(train_tokens) - ctx - 1, bs)
+        ids = torch.from_numpy(np.stack([train_tokens[s:s + ctx] for s in starts]).astype(np.int64)).to(dev)
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, cfg, ids)
+        loss.backward()
+        clip_by_global_norm([p.grad for p in leaves], 1.0)
+        for group in opt.param_groups:
+            group["lr"] = cosine_lr(lr, steps, i)
+        opt.step()
+        if losses is not None:
+            losses.append(float(loss.detach()))
+        if log_every and (i + 1) % log_every == 0:
+            print(f"  step {i + 1}/{steps} loss {float(loss):.4f} nats "
+                  f"({float(loss) / np.log(2):.3f} bits/byte)", flush=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return params, float(loss.detach())
+
+
+def save_checkpoint(params, cfg: ModelConfig, path: Path | None = None) -> None:
+    """The reference's layout: `/`-joined keys (`embed`, `layers/wq`, ...),
+    f32 leaves, and the ModelConfig fields as `__meta__` JSON."""
+    path = Path(path or checkpoint_path())
+    path.parent.mkdir(parents=True, exist_ok=True)
+    flat = {}
+    for k, v in params.items():
+        if k == "layers":
+            flat.update({f"layers/{kk}": vv.detach().float().cpu().numpy() for kk, vv in v.items()})
+        else:
+            flat[k] = v.detach().float().cpu().numpy()
+    meta = {f.name: (getattr(cfg, f.name) if f.name != "dtype" else "float32")
+            for f in dataclasses.fields(cfg)}
+    np.savez_compressed(path, __meta__=json.dumps(meta), **flat)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="train the quality LM")
+    ap.add_argument("--model", choices=("tiny", "large"), default="tiny")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--bs", type=int, default=None)
+    ap.add_argument("--ctx", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--holdout", type=int, default=None)
+    ap.add_argument("--out", default=None, help="checkpoint path (default: the pinned one)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.model == "large":
+        cfg, path, tokens = QUALITY_CFG_L, checkpoint_path_l(), build_corpus_v2()
+        steps, bs, ctx = args.steps or 6000, args.bs or 16, args.ctx or 1024
+        holdout, log_every = args.holdout or (2 << 20), 100
+    else:
+        cfg, path, tokens = QUALITY_CFG, checkpoint_path(), build_corpus()
+        steps, bs, ctx = args.steps or 2000, args.bs or 8, args.ctx or 256
+        holdout, log_every = args.holdout or (1 << 16), 200
+    path = Path(args.out) if args.out else path
+    print(f"corpus: {len(tokens)} bytes", flush=True)
+    t0 = time.perf_counter()
+    params, loss = train_tiny_lm(tokens, cfg, steps=steps, bs=bs, ctx=ctx, lr=args.lr,
+                                 holdout=holdout, log_every=log_every, device=args.device)
+    save_checkpoint(params, cfg, path)
+    print(f"saved {path} (final loss {loss:.4f} nats, {time.perf_counter() - t0:.1f} s)")
+
+
+if __name__ == "__main__":
+    main()

@@ -156,14 +156,22 @@ def scatter_tokens(pool: torch.Tensor, layer: Optional[int], pages: torch.Tensor
 
 
 def token_pages(state: PagedState, seq_ids: torch.Tensor, t: torch.Tensor,
-                real: torch.Tensor):
+                real: torch.Tensor, shard=None):
     """(pages, offs) of token positions t (S, n) of slots seq_ids (S,):
     the slot's table entry for t // page_size where `real` holds and the
-    entry is allocated, else the scratch page."""
+    entry is allocated, else the scratch page. With shard = (s, pps_l) the
+    state is sequence shard s's slab (parallel/paged_sharded.py): its table
+    holds table positions [s pps_l, (s + 1) pps_l), and a token another
+    shard owns goes to this shard's scratch page."""
     page_size = state["key_pool"].shape[3]
     scratch = state["key_pool"].shape[1] - 1
     table = state["page_table"]
-    tpos = torch.clamp(t // page_size, 0, table.shape[1] - 1)
+    tpos = t // page_size
+    if shard is not None:
+        s, pps_l = shard
+        tpos = tpos - s * pps_l
+        real = real & (tpos >= 0) & (tpos < pps_l)
+    tpos = torch.clamp(tpos, 0, table.shape[1] - 1)
     raw = table[seq_ids.long()[:, None], tpos.long()]
     return torch.where(real & (raw >= 0), raw, scratch), t % page_size
 

@@ -135,14 +135,16 @@ def stacked_prefix_write(
     v_tail: Optional[torch.Tensor],
     k_out: Optional[torch.Tensor] = None,  # (bs, nh_k, n4, OK) exact channels
     v_out: Optional[torch.Tensor] = None,
+    at: Optional[int] = None,  # arena position of the codes (None: n_codes)
 ) -> None:
     """Write one layer's prefill chunk in place: codes and outlier channels
-    at token n_codes, the ragged tail into the residual window at r.
+    at token n_codes (or `at`: a sequence shard's local position), the
+    ragged tail into the residual window at r.
 
     The counters are NOT advanced here: they are shared by all layers, so
     the caller advances them once after writing every layer."""
     n4 = kc.shape[2]
-    s = cache["n_codes"]
+    s = cache["n_codes"] if at is None else at
     if s + n4 > cache["key_codes"].shape[3]:
         raise ValueError(f"prefix of {n4} codes overflows the arena at {s}")
     if n4:

@@ -37,7 +37,13 @@ arena's dtype (llama.attention_route), before any launch.
 OPQ (cents "Rk" / "Rv"): the stored k / v rotate; the in-chunk partial stays
 in the original space, the history partial runs in rotated space (q rotated
 by Rk) and its output unrotates by Rv^T once per layer and chunk, before the
-two partials merge. Not in this slice (raises NotImplementedError): mesh.
+two partials merge.
+
+Meshes (parallel/mesh.py): the in-chunk partial runs on each rank's heads
+and batch (no collective), the history partial runs the kernel over each
+rank's arena shard with n_prev_local = clip(n_prev - i * n_local, 0,
+n_local) and the shards LSE-merge (parallel/sharded_decode.merge_over); a
+chunk's codes are written by the rank whose shard owns them.
 """
 
 from __future__ import annotations
@@ -45,7 +51,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from million_tpu_torch.cache.pq_cache import WORD, stacked_prefix_write
 from million_tpu_torch.models.llama import (
@@ -59,8 +64,8 @@ from million_tpu_torch.models.llama import (
     _opq_rotate,
     _qkv,
     _rms_norm,
+    _attn_out,
     _rope,
-    _unsupported,
     attention_route,
 )
 from million_tpu_torch.ops.causal_attention_kernel import causal_partial, causal_partial_plain
@@ -72,6 +77,8 @@ from million_tpu_torch.ops.pq_chunk_attention_kernel import (
     pq_chunk_history_attention,
     ungroup_rows,
 )
+from million_tpu_torch.parallel.mesh import overlap, seq_shard
+from million_tpu_torch.parallel.sharded_decode import empty_partial, local_valid, merge_over
 from million_tpu_torch.pq.ops import runtime_encode, zero_channels
 
 
@@ -110,6 +117,7 @@ def _prefill_one_chunk(
     last_chunk: bool,
     hist_block: int = 4096,
     use_kernel: bool = True,  # both partials through their wrappers; False: their plain versions
+    mesh=None,
 ) -> Optional[torch.Tensor]:
     """One chunk through every layer: encode and write the chunk's codes at
     n_codes, attend causally within the chunk and over the history
@@ -122,6 +130,10 @@ def _prefill_one_chunk(
     tail = nc - n4
     n_prev = cache["n_codes"]  # history BEFORE this chunk's write
     kernel_history = use_kernel and attention_route(cache["key_codes"].dtype) == "pq_kernel"
+    n_local = cache["key_codes"].shape[3]
+    # this rank's share [off, off + cnt) of the chunk's codes, at `at` in its arena shard
+    off, at, cnt = overlap(mesh, n_local, n_prev, n4)
+    nv = local_valid(mesh, n_prev, n_local)  # history tokens in this rank's shard
     x = params["embed"][ids]
     rope = _rope(cfg, pos_offset + torch.arange(nc, device=x.device), x.device)
     for i in range(cfg.num_layers):
@@ -131,7 +143,7 @@ def _prefill_one_chunk(
         Rk, Rv = _layer_rots(cents, i)
         k_st = k if Rk is None else _opq_rotate(k, Rk)
         v_st = v if Rv is None else _opq_rotate(v, Rv)
-        k_enc, v_enc = k_st[:, :, :n4], v_st[:, :, :n4]
+        k_enc, v_enc = k_st[:, :, off:off + cnt], v_st[:, :, off:off + cnt]
         k_out = v_out = None
         hokw = {}
         if "k_outlier_idx" in cents:
@@ -144,26 +156,34 @@ def _prefill_one_chunk(
             v_out = v_enc.index_select(-1, voidx.long())
             v_enc = zero_channels(v_enc, voidx)
             hokw.update(voidx=voidx, v_outliers=cache["value_outliers"][i])
-        kc = runtime_encode(k_enc, cents["key"][i], SUBSPACE_LAYOUT)
-        vc = runtime_encode(v_enc, cents["value"][i], SUBSPACE_LAYOUT)
+        if cnt:
+            kc = runtime_encode(k_enc, cents["key"][i], SUBSPACE_LAYOUT)
+            vc = runtime_encode(v_enc, cents["value"][i], SUBSPACE_LAYOUT)
+        else:
+            kc = vc = k_enc[..., :0].to(torch.uint8)
         stacked_prefix_write(
             cache, i, kc, vc,
             k_st[:, :, n4:] if tail else None, v_st[:, :, n4:] if tail else None,
-            k_out=k_out, v_out=v_out,
+            k_out=k_out, v_out=v_out, at=at,
         )
         attn, lse_c = (causal_partial if use_kernel else causal_partial_plain)(q, k, v, scale)
         if n_prev:
-            history = pq_chunk_history_attention if kernel_history else _history_partial
-            out_h, lse_h = history(
-                q if Rk is None else _opq_rotate(q, Rk), cache["key_codes"][i], cache["value_codes"][i], cents["key"][i],
-                cents["value"][i], n_prev, scale, hist_block=hist_block, **hokw)
+            q_h = q if Rk is None else _opq_rotate(q, Rk)
+            if nv:
+                history = pq_chunk_history_attention if kernel_history else _history_partial
+                out_h, lse_h = history(
+                    q_h, cache["key_codes"][i], cache["value_codes"][i], cents["key"][i],
+                    cents["value"][i], nv, scale, hist_block=hist_block, **hokw)
+            else:
+                out_h, lse_h = empty_partial(q_h)
+            out_h, lse_h = merge_over(out_h, lse_h, mesh)
             if Rv is not None:  # back to the in-chunk partial's V basis before the merge
                 out_h = _opq_rotate(out_h, Rv.t())
             attn, _ = merge_two_partials(attn, lse_c, out_h, lse_h)
         attn = attn.to(x.dtype).transpose(1, 2).reshape(bs, nc, -1)
-        x = x + F.linear(attn, lp["wo"]).to(x.dtype)
+        x = x + _attn_out(attn, lp, mesh).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp).to(x.dtype)
+        x = x + _mlp(h, lp, mesh).to(x.dtype)
     cache["n_codes"] += n4
     cache["r"] += tail
     if not last_chunk:
@@ -189,10 +209,10 @@ def chunked_prefill(
     takes the plain versions of both partials on any device; the default
     takes their wrappers (causal_partial, pq_chunk_history_attention), which
     launch the kernels for CUDA tensors and run the plain versions for CPU
-    tensors; an int16 (wide-code) arena takes the plain history route. The plain history version decodes hist_block history tokens at
-    a time (its memory bound); the kernel walks the history in its own tiles
-    and does not read it."""
-    _unsupported(mesh=mesh)
+    tensors; an int16 (wide-code) arena takes the plain history route. The
+    plain history version decodes hist_block history tokens at a time (its
+    memory bound); the kernel walks the history in its own tiles and does
+    not read it. On a mesh, input_ids and the cache are this rank's."""
     if chunk <= 0 or chunk % WORD:
         raise ValueError("chunk must be a positive multiple of 4")
     if hist_block <= 0:
@@ -200,7 +220,7 @@ def chunked_prefill(
     bs, n = input_ids.shape
     if n < 1:
         raise ValueError("empty prompt")
-    n_max = cache["key_codes"].shape[3]
+    n_max = cache["key_codes"].shape[3] * seq_shard(mesh)[1]
     if n - n % WORD > n_max:
         raise ValueError(f"aligned prompt prefix {n - n % WORD} exceeds arena N_max {n_max}")
     if cache["n_codes"] != 0 or cache["r"] != 0:
@@ -214,5 +234,5 @@ def chunked_prefill(
         e = min(s + chunk, n)
         logits = _prefill_one_chunk(
             params, cfg, input_ids[:, s:e], cache, cents, s, last_chunk=(e == n),
-            hist_block=hist_block, use_kernel=use_kernel)
+            hist_block=hist_block, use_kernel=use_kernel, mesh=mesh)
     return logits, cache

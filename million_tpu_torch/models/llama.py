@@ -9,9 +9,13 @@ as a Python loop over views of those stacks.
 
 Decode attention modes:
   "dense"     exact attention over a dense bf16 cache (the baseline);
-  "pq"        the plain oracle pq_decode_attention_ref over the PQ cache;
+  "pq"        the kernel's plain PyTorch version in one pass over the code
+              arena plus the exact residual window (million_tpu's "pq"
+              oracle, pq_decode_attention_ref, computes the same);
   "pq_kernel" the hand-written CUDA kernel over the code arena plus the exact
               residual window, LSE-merged (million_tpu's "pq_pallas").
+Both run through parallel/sharded_decode.py, which without a mesh is one
+call over the whole arena.
 On CPU tensors "pq_kernel" runs the kernel's plain PyTorch version. On an
 int16 code arena (wide codes, C > 256) "pq_kernel" takes the "pq" route, as
 the reference package demotes "pq_pallas" (million_tpu/models/llama.py:568-
@@ -25,7 +29,19 @@ back, the decode q rotates by Rk, and the attention output unrotates by Rv^T
 before wo. Prefill attention stays in the original space. The rotations are
 plain matrix products outside the kernels, as in the reference.
 
-Not in this slice of the port (raises NotImplementedError): mesh.
+Meshes (parallel/mesh.py, one process per rank): with `mesh=` every rank
+holds its own slices: the parameters split by heads and MLP columns over tp
+(an all-reduce after wo and after w_down joins the partial sums, the two
+that GSPMD inserted for the reference), the batch over dp, and the code
+arena over the sequence axes in contiguous ranges. A write of codes (prefill,
+flush) lands only on the rank that owns the position; the residual window is
+replicated, and the decode attention runs the kernel over each rank's shard
+and LSE-merges (parallel/sharded_decode.py). Callers pass each rank's batch
+slice, and the logits they get back are that slice's.
+
+`forward` is the dense transformer body that `prefill` and the trainer's
+`loss_fn` (benchmarks/tiny_lm.py) share: prefill runs it under no_grad with
+its cache writes, the loss through autograd with none.
 """
 
 from __future__ import annotations
@@ -42,12 +58,10 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from million_tpu_torch import resolve_device
 from million_tpu_torch.cache.dense_cache import dense_write
 from million_tpu_torch.cache.pq_cache import WORD, stacked_prefix_write
-from million_tpu_torch.ops.pq_attention_kernel import pq_codes_attention_stacked
-from million_tpu_torch.ops.pq_attention_ref import (
-    causal_attention,
-    pq_decode_attention_ref,
-)
+from million_tpu_torch.ops.pq_attention_ref import causal_attention
 from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_plain, pq_encode_fused_stacked
+from million_tpu_torch.parallel.mesh import overlap
+from million_tpu_torch.parallel.sharded_decode import sharded_pq_codes_attention_stacked
 from million_tpu_torch.pq.ops import (
     RUNTIME_ENCODE_PRECISION,
     pq_decode,
@@ -257,7 +271,8 @@ def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
     """x (bs, n, D) -> q (bs, nh, n, dh), k/v (bs, nk, n, dh), RoPE applied
     with rope = _rope(cfg, pos, device)."""
     bs, n, _ = x.shape
-    nh, nk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    nh, nk = lp["wq"].shape[0] // dh, lp["wk"].shape[0] // dh  # this rank's heads on a tp mesh
     qf = F.linear(x, lp["wq"], lp.get("bq"))
     kf = F.linear(x, lp["wk"], lp.get("bk"))
     vf = F.linear(x, lp["wv"], lp.get("bv"))
@@ -268,8 +283,23 @@ def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, rope):
     return qk[:, :nh], qk[:, nh:], v
 
 
-def _mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
-    return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+def _tp_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The all-reduce over tp that joins a row-parallel product's partial
+    sums (in the model's dtype, as GSPMD reduces the reference's einsum
+    output); y itself off a tp mesh."""
+    return mesh.all_reduce(y, "tp") if mesh is not None and mesh.size("tp") > 1 else y
+
+
+def _mlp(x: torch.Tensor, lp: Params, mesh=None) -> torch.Tensor:
+    """SwiGLU MLP; on a tp mesh w_gate / w_up hold this rank's columns and
+    w_down its rows, and the partial products sum over tp."""
+    return _tp_sum((F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"], mesh)
+
+
+def _attn_out(attn: torch.Tensor, lp: Params, mesh=None) -> torch.Tensor:
+    """The output projection attn @ wo^T; on a tp mesh wo holds this rank's
+    input rows (its heads) and the partial products sum over tp."""
+    return _tp_sum(F.linear(attn, lp["wo"]), mesh)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -312,18 +342,44 @@ def attention_route(code_dtype: torch.dtype, mode: str = "pq_kernel") -> str:
     return mode
 
 
-def _unsupported(**flags) -> None:
-    for name, val in flags.items():
-        if val:
-            raise NotImplementedError(f"{name} is a later slice of the port")
+def forward(params: Params, cfg: ModelConfig, input_ids: torch.Tensor, pos_offset: int = 0,
+            store=None, mesh=None) -> torch.Tensor:
+    """The dense transformer body: input_ids (bs, n) -> the pre-head hidden
+    states (bs, n, D), exact causal attention in every layer (SDPA). `store(i,
+    k, v)` sees each layer's k / v (bs, nh_k, n, d) and returns the k / v
+    that layer attends (prefill's cache writes; None attends them as they
+    are). Differentiable where the caller has grad on (the trainer)."""
+    bs, n = input_ids.shape
+    x = params["embed"][input_ids]
+    rope = _rope(cfg, pos_offset + torch.arange(n, device=x.device), x.device)
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg, rope)
+        if store is not None:
+            k, v = store(i, k, v)
+        attn = causal_attention(q, k, v).transpose(1, 2).reshape(bs, n, -1)
+        x = x + _attn_out(attn, lp, mesh).to(x.dtype)
+        h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + _mlp(h, lp, mesh).to(x.dtype)
+    return x
+
+
+def loss_fn(params: Params, cfg: ModelConfig, ids: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood (nats) of ids (bs, n) under the
+    dense forward: the trainer's loss (million_tpu/benchmarks/tiny_lm.py
+    _loss_fn), differentiable."""
+    logits = _logits(params, cfg, forward(params, cfg, ids))
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    return -logp.gather(-1, ids[:, 1:, None].long())[..., 0].mean()
 
 
 @torch.no_grad()
 def prefill(
     params: Params,
     cfg: ModelConfig,
-    input_ids: torch.Tensor,  # (bs, n) integer
-    cache: Dict[str, Any],  # PQ or dense cache, updated in place
+    input_ids: torch.Tensor,  # (bs, n) integer; this rank's batch slice on a mesh
+    cache: Dict[str, Any],  # PQ or dense cache, updated in place; this rank's shard on a mesh
     cents: Optional[Dict[str, torch.Tensor]] = None,  # {"key": (L,M,C,dm), ...}
     pos_offset: int = 0,
     mode: str = "pq",
@@ -342,61 +398,61 @@ def prefill(
     channels zeroed before the encode and stored exactly), the ragged tail
     goes to the residual window; attention is exact, or with distort_recent
     runs over decode(encode(k, v)) of every position with the outlier
-    channels restored exactly (the reference's perplexity protocol).
+    channels restored exactly (the reference's perplexity protocol). On a
+    mesh each rank encodes and writes only the part of the prefix its arena
+    shard owns (all of it with distort_recent, which attends every code).
     mode "dense": the bf16-KV baseline."""
-    _unsupported(mesh=mesh)
     if mode not in ("pq", "dense"):
         raise ValueError(f"unknown prefill mode {mode!r}")
     bs, n = input_ids.shape
-    x = params["embed"][input_ids]
-    rope = _rope(cfg, pos_offset + torch.arange(n, device=x.device), x.device)
     n4 = (n // WORD) * WORD
     tail = n - n4
-    n_enc = n if distort_recent else n4  # the distortion needs the tail's codes too
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, rope)
-        if mode == "pq":
-            # OPQ: only the stored k / v rotate; the attention below stays in
-            # the original space
-            Rk, Rv = _layer_rots(cents, i)
-            k_st = k if Rk is None else _opq_rotate(k, Rk)
-            v_st = v if Rv is None else _opq_rotate(v, Rv)
-            k_enc, v_enc = k_st[:, :, :n_enc], v_st[:, :, :n_enc]
-            k_out = v_out = None
-            if "k_outlier_idx" in cents:
-                koidx = cents["k_outlier_idx"][i]
-                k_enc = zero_channels(k_enc, koidx)
-                k_out = k_st[:, :, :n4].index_select(-1, koidx.long())
-            if "v_outlier_idx" in cents:
-                voidx = cents["v_outlier_idx"][i]
-                v_enc = zero_channels(v_enc, voidx)
-                v_out = v_st[:, :, :n4].index_select(-1, voidx.long())
+    s0 = cache["n_codes"] if mode == "pq" else 0
+
+    def store(i, k, v):
+        if mode == "dense":
+            dense_write(cache, i, k, v)
+            return k, v
+        # OPQ: only the stored k / v rotate; the attention stays in the original space
+        Rk, Rv = _layer_rots(cents, i)
+        k_st = k if Rk is None else _opq_rotate(k, Rk)
+        v_st = v if Rv is None else _opq_rotate(v, Rv)
+        # this rank's share [off, off + cnt) of the prefix, at `at` in its arena
+        off, at, cnt = overlap(mesh, cache["key_codes"].shape[3], s0, n4)
+        lo, hi = (0, n) if distort_recent else (off, off + cnt)  # the distortion needs every code
+        k_enc, v_enc = k_st[:, :, lo:hi], v_st[:, :, lo:hi]
+        k_out = v_out = None
+        if "k_outlier_idx" in cents:
+            koidx = cents["k_outlier_idx"][i]
+            k_enc = zero_channels(k_enc, koidx)
+            k_out = k_st[:, :, off:off + cnt].index_select(-1, koidx.long())
+        if "v_outlier_idx" in cents:
+            voidx = cents["v_outlier_idx"][i]
+            v_enc = zero_channels(v_enc, voidx)
+            v_out = v_st[:, :, off:off + cnt].index_select(-1, voidx.long())
+        if hi > lo:
             kc = _prefill_encode(k_enc, cents["key"][i], use_kernel)
             vc = _prefill_encode(v_enc, cents["value"][i], use_kernel)
-            stacked_prefix_write(
-                cache, i, kc[:, :, :n4], vc[:, :, :n4],
-                k_st[:, :, n4:] if tail else None, v_st[:, :, n4:] if tail else None,
-                k_out=k_out, v_out=v_out,
-            )
-            if distort_recent:
-                k_hat = pq_decode(kc, cents["key"][i], SUBSPACE_LAYOUT).to(k.dtype)
-                v_hat = pq_decode(vc, cents["value"][i], SUBSPACE_LAYOUT).to(v.dtype)
-                if "k_outlier_idx" in cents:
-                    k_hat = restore_channels(k_hat, k_st, koidx)
-                if "v_outlier_idx" in cents:
-                    v_hat = restore_channels(v_hat, v_st, voidx)
-                if Rk is not None:  # the reconstruction back to the original space
-                    k_hat, v_hat = _opq_rotate(k_hat, Rk.t()), _opq_rotate(v_hat, Rv.t())
-                k, v = k_hat, v_hat
         else:
-            dense_write(cache, i, k, v)
-        attn = causal_attention(q, k, v)
-        attn = attn.transpose(1, 2).reshape(bs, n, -1)
-        x = x + F.linear(attn, lp["wo"]).to(x.dtype)
-        h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp).to(x.dtype)
+            kc = vc = k_st.new_zeros((bs, k.shape[1], 0, 1), dtype=torch.uint8)
+        stacked_prefix_write(
+            cache, i, kc[:, :, off - lo:off - lo + cnt], vc[:, :, off - lo:off - lo + cnt],
+            k_st[:, :, n4:] if tail else None, v_st[:, :, n4:] if tail else None,
+            k_out=k_out, v_out=v_out, at=at,
+        )
+        if not distort_recent:
+            return k, v
+        k_hat = pq_decode(kc, cents["key"][i], SUBSPACE_LAYOUT).to(k.dtype)
+        v_hat = pq_decode(vc, cents["value"][i], SUBSPACE_LAYOUT).to(v.dtype)
+        if "k_outlier_idx" in cents:
+            k_hat = restore_channels(k_hat, k_st, koidx)
+        if "v_outlier_idx" in cents:
+            v_hat = restore_channels(v_hat, v_st, voidx)
+        if Rk is not None:  # the reconstruction back to the original space
+            k_hat, v_hat = _opq_rotate(k_hat, Rk.t()), _opq_rotate(v_hat, Rv.t())
+        return k_hat, v_hat
+
+    x = forward(params, cfg, input_ids, pos_offset, store, mesh)
     if mode == "pq":
         cache["n_codes"] += n4
         cache["r"] += tail
@@ -435,10 +491,12 @@ def _masked_dense_decode(q, k, v):
     return out[:, :, 0]
 
 
-def _pq_kernel_attention_stacked(q, cache, cents, li: int, n_codes: int, r: int):
-    """Kernel decode attention at layer li of the stacked cache: the code
-    arena and the exact first r rows of the residual window, LSE-merged, in
-    one call of the CUDA kernel. q (bs, nh, d) -> (bs, nh, d)."""
+def _pq_attention(q, cache, cents, li: int, n_codes: int, r: int, mesh, plain: bool):
+    """Decode attention at layer li of the stacked cache: the code arena
+    (this rank's shard on a mesh) and the exact first r rows of the residual
+    window in one call of the kernel (its plain version with plain=True),
+    LSE-merged across the sequence shards (parallel/sharded_decode.py).
+    q (bs, nh, d) -> (bs, nh, d)."""
     bs, nh, d = q.shape
     nh_k = cache["key_codes"].shape[2]
     qg = (q.to(torch.float32) * (1.0 / d**0.5)).reshape(bs, nh_k, nh // nh_k, d)
@@ -447,25 +505,12 @@ def _pq_kernel_attention_stacked(q, cache, cents, li: int, n_codes: int, r: int)
         okw.update(k_outliers=cache["key_outliers"], k_oidx=cents["k_outlier_idx"])
     if "value_outliers" in cache:
         okw.update(v_outliers=cache["value_outliers"], v_oidx=cents["v_outlier_idx"])
-    out, _ = pq_codes_attention_stacked(
-        qg, cache["key_codes"], cache["value_codes"], cents["key"], cents["value"],
+    out, _ = sharded_pq_codes_attention_stacked(
+        mesh, qg, cache["key_codes"], cache["value_codes"], cents["key"], cents["value"],
         li, n_codes, k_residual=cache["key_residual"], v_residual=cache["value_residual"],
-        r=r, **okw,
+        r=r, plain=plain, **okw,
     )
-    return out.reshape(bs, nh, d).to(q.dtype)
-
-
-def _pq_ref_attention(q, cache, cents, li: int, n_codes: int, r: int):
-    kw = {}
-    if "key_outliers" in cache:
-        kw.update(k_outliers=cache["key_outliers"][li], k_oidx=cents["k_outlier_idx"][li])
-    if "value_outliers" in cache:
-        kw.update(v_outliers=cache["value_outliers"][li], v_oidx=cents["v_outlier_idx"][li])
-    return pq_decode_attention_ref(
-        q, cache["key_codes"][li], cache["value_codes"][li], cents["key"][li],
-        cents["value"][li], cache["key_residual"][li], cache["value_residual"][li],
-        n_codes, r, layout=SUBSPACE_LAYOUT, **kw,
-    )
+    return out.reshape(q.shape).to(q.dtype)
 
 
 @torch.no_grad()
@@ -482,8 +527,10 @@ def decode_step(
     """One decode token; returns logits (bs, V) f32 and updates the cache IN
     PLACE: the token's k/v go to residual row r (PQ) or position `length`
     (dense), then the counter advances. A full residual window must be
-    flushed first (flush_windows, scheduled by the host as generate does)."""
-    _unsupported(mesh=mesh)
+    flushed first (flush_windows, scheduled by the host as generate does).
+    The PQ attention runs over each rank's arena shard and merges across
+    the sequence shards (one shard without a mesh): the kernel for
+    "pq_kernel", its plain version for "pq"."""
     if mode not in ("dense", "pq", "pq_kernel"):
         raise ValueError(f"unknown decode mode {mode!r}")
     bs = token.shape[0]
@@ -515,16 +562,13 @@ def decode_step(
                 q, k, v = _opq_rotate(q, Rk), _opq_rotate(k, Rk), _opq_rotate(v, Rv)
             cache["key_residual"][i, :, :, r] = k[:, :, 0]
             cache["value_residual"][i, :, :, r] = v[:, :, 0]
-            if mode == "pq_kernel":
-                attn = _pq_kernel_attention_stacked(q[:, :, 0], cache, cents, i, n_codes, r + 1)
-            else:
-                attn = _pq_ref_attention(q[:, :, 0], cache, cents, i, n_codes, r + 1)
+            attn = _pq_attention(q[:, :, 0], cache, cents, i, n_codes, r + 1, mesh, plain=mode == "pq")
             if Rv is not None:
                 attn = _opq_rotate(attn, Rv.t())
         attn = attn.reshape(bs, 1, -1)
-        x = x + F.linear(attn, lp["wo"]).to(x.dtype)
+        x = x + _attn_out(attn, lp, mesh).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp).to(x.dtype)
+        x = x + _mlp(h, lp, mesh).to(x.dtype)
     if mode == "dense":
         cache["length"] = p0 + 1
     else:
@@ -534,13 +578,15 @@ def decode_step(
 
 @torch.no_grad()
 def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int = 0,
-                  use_kernel: bool = True) -> None:
+                  use_kernel: bool = True, mesh=None) -> None:
     """Flush the oldest n rows of every layer's residual window into the code
     arena, IN PLACE: one fused encode per side with a codebook bank per layer
     (the kernel on the card, its plain version on the CPU or with
     use_kernel=False), codes and exact outlier channels (cast to bf16)
     written at n_codes, then the surviving rows roll down (n < Lt) or the
-    window empties (n = 0 or Lt)."""
+    window empties (n = 0 or Lt). On a mesh only the rank whose arena
+    shard owns a position encodes and writes it (a window may straddle two
+    shards); every rank rolls its copy of the window."""
     Lt = cache["key_residual"].shape[3]
     if n <= 0 or n >= Lt:
         n = Lt
@@ -549,20 +595,21 @@ def flush_windows(cache: Dict[str, Any], cents: Dict[str, torch.Tensor], n: int 
     s = cache["n_codes"]
     if cache["r"] < n:
         raise ValueError(f"flush of {n} rows with only {cache['r']} in the window")
-    if s + n > cache["key_codes"].shape[3]:
-        raise ValueError(f"flush of {n} codes overflows the arena at {s}")
+    n_local = cache["key_codes"].shape[3]
+    off, at, cnt = overlap(mesh, n_local, s, n)
     for side in ("key", "value"):
         res = cache[side + "_residual"]
-        window = res[:, :, :, :n]
-        encode = pq_encode_fused_stacked if use_kernel else pq_encode_fused_plain
-        codes = encode(window, cents[side], SUBSPACE_LAYOUT, precision=RUNTIME_ENCODE_PRECISION)
-        cache[side + "_codes"][:, :, :, s:s + n] = codes
-        arena = cache.get(side + "_outliers")
-        if arena is not None:
-            idx = cents[("k" if side == "key" else "v") + "_outlier_idx"].long()
-            L, bs, nk = window.shape[:3]
-            sel = torch.gather(window, -1, idx[:, None, None, None, :].expand(L, bs, nk, n, -1))
-            arena[:, :, :, s:s + n] = sel.to(torch.bfloat16)
+        window = res[:, :, :, off:off + cnt]
+        if cnt:
+            encode = pq_encode_fused_stacked if use_kernel else pq_encode_fused_plain
+            codes = encode(window, cents[side], SUBSPACE_LAYOUT, precision=RUNTIME_ENCODE_PRECISION)
+            cache[side + "_codes"][:, :, :, at:at + cnt] = codes
+            arena = cache.get(side + "_outliers")
+            if arena is not None:
+                idx = cents[("k" if side == "key" else "v") + "_outlier_idx"].long()
+                L, bs, nk = window.shape[:3]
+                sel = torch.gather(window, -1, idx[:, None, None, None, :].expand(L, bs, nk, cnt, -1))
+                arena[:, :, :, at:at + cnt] = sel.to(torch.bfloat16)
         if n < Lt:
             res.copy_(torch.roll(res, -n, dims=3))
     cache["n_codes"] = s + n

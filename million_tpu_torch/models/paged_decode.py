@@ -27,8 +27,13 @@ pages. `lax.scan` over layers is a Python loop.
 OPQ (tables "Rk" / "Rv", the flat path's contract): pools and residual
 windows hold rotated k / v, the decode q and the admission history's q rotate
 by Rk, and each attention output over the rotated cache unrotates by Rv^T;
-prefill and in-chunk attention stay in the original space. Not in this slice
-(raises NotImplementedError): `mesh`.
+prefill and in-chunk attention stay in the original space.
+
+Meshes (parallel/paged_sharded.py): with `mesh=` the state is this rank's slab
+(its pages, its page-table columns, its heads), every write routes through
+`token_pages(shard=...)` (a token another shard owns lands on the local
+scratch page), the decode attention and the admission's history partial run
+their kernels per shard and LSE-merge, and the projections all-reduce over tp.
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from million_tpu_torch.cache.paged_pq_cache import (
     PagedPQCacheConfig,
@@ -60,15 +64,16 @@ from million_tpu_torch.models.llama import (
     _rms_norm,
     _rope,
     _rope_per_seq,
-    _unsupported,
+    _attn_out,
 )
 from million_tpu_torch.ops.causal_attention_kernel import causal_partial, causal_partial_plain
 from million_tpu_torch.ops.pq_attention_ref import causal_attention, merge_two_partials
 from million_tpu_torch.ops.pq_chunk_attention_kernel import pq_chunk_history_attention
 from million_tpu_torch.ops.pq_encode_kernel import pq_encode_fused_stacked
-from million_tpu_torch.ops.pq_paged_attention_kernel import (
-    pq_paged_attention_plain,
-    pq_paged_attention_stacked,
+from million_tpu_torch.parallel.paged_sharded import (
+    shard_of,
+    sharded_history,
+    sharded_paged_attention_stacked,
 )
 from million_tpu_torch.pq.ops import RUNTIME_ENCODE_PRECISION, runtime_encode
 
@@ -112,9 +117,9 @@ def paged_decode_step(
     residual window only, and the caller must run `flush_paged_slots` on any
     slot whose window is full (seq_r >= Lt) BEFORE stepping it again; a slot
     stepped past a full window overwrites its last residual row."""
-    _unsupported(mesh=mesh)
     S = tokens.shape[0]
-    nh, nh_k, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nh_k, dh = state["key_pool"].shape[2], cfg.head_dim  # this rank's heads on a tp mesh
+    nh = nh_k * (cfg.num_heads // cfg.num_kv_heads)
     scale = 1.0 / (dh**0.5)
     active = state["seq_active"] > 0
     r = state["seq_r"]
@@ -127,7 +132,6 @@ def paged_decode_step(
     wr = torch.where(active, torch.clamp(r, max=pcfg.Lt - 1), 0).long()
     rows = torch.where(active, wr + 1, 0).to(torch.int32)  # live residual rows per slot
     slot = torch.arange(S, device=x.device)
-    attention = pq_paged_attention_plain if use_kernel is False else pq_paged_attention_stacked
     okw = _outlier_kw(state, tables)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
@@ -140,16 +144,17 @@ def paged_decode_step(
         state["key_residual"][i][slot, :, wr] = k[:, :, 0]
         state["value_residual"][i][slot, :, wr] = v[:, :, 0]
         qg = (q[:, :, 0].to(torch.float32) * scale).reshape(S, nh_k, nh // nh_k, dh)
-        attn, _ = attention(
-            qg, state["key_pool"], state["value_pool"], tables["key"], tables["value"], i,
-            state["page_table"], n_codes, n_bound=n_bound, k_residual=state["key_residual"],
-            v_residual=state["value_residual"], r=rows, **okw)
+        args = (qg, state["key_pool"], state["value_pool"], tables["key"], tables["value"], i,
+                state["page_table"], n_codes)
+        rkw = dict(n_bound=n_bound, k_residual=state["key_residual"],
+                   v_residual=state["value_residual"], r=rows, **okw)
+        attn, _ = sharded_paged_attention_stacked(mesh, pcfg, *args, use_kernel=use_kernel, **rkw)
         if Rv is not None:
             attn = _opq_rotate(attn, Rv.t())
         attn = attn.reshape(S, 1, nh * dh).to(x.dtype)
-        x = x + F.linear(attn, lp["wo"]).to(x.dtype)
+        x = x + _attn_out(attn, lp, mesh).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp).to(x.dtype)
+        x = x + _mlp(h, lp, mesh).to(x.dtype)
     state["seq_r"].copy_(torch.where(active, rows, r))
     return _logits(params, cfg, x)[:, 0]
 
@@ -171,13 +176,14 @@ def flush_paged_slots(
     token is routed through the page table, so a window that straddles two
     pages is written to both. The window must be FULL (seq_r == Lt) for
     masked slots: the scheduler guarantees it, and grows the slot's pages
-    first."""
-    _unsupported(mesh=mesh)
+    first. On a mesh every shard encodes the windows and writes the tokens
+    it owns, the others to its scratch page."""
     dev = state["key_pool"].device
     S, Lt = pcfg.max_seqs, pcfg.Lt
     mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
     t = state["seq_n_codes"][:, None] + torch.arange(Lt, device=dev)[None, :]  # (S, Lt)
-    pages, offs = token_pages(state, torch.arange(S, device=dev), t, mask[:, None].expand(S, Lt))
+    pages, offs = token_pages(state, torch.arange(S, device=dev), t, mask[:, None].expand(S, Lt),
+                              shard_of(pcfg, mesh))
     for side, short in _SIDES:
         window = state[side + "_residual"]  # (L, S, nh_k, Lt, d)
         codes = pq_encode_fused_stacked(window, tables[side], SUBSPACE_LAYOUT,
@@ -230,13 +236,12 @@ def paged_prefill_seq(
     encoded and written into the slot's (pre-allocated) pages; the 4-aligned
     prefix goes to pages, the ragged tail to the exact residual window.
     Returns (last-token logits (1, V) f32, the state, updated in place)."""
-    _unsupported(mesh=mesh)
     n = input_ids.shape[1]
     n4 = (n // WORD) * WORD
     dev = input_ids.device
     sid = torch.tensor([seq_id], device=dev)
     t = torch.arange(n4, device=dev)[None, :]
-    pages, offs = token_pages(state, sid, t, torch.ones_like(t, dtype=torch.bool))
+    pages, offs = token_pages(state, sid, t, torch.ones_like(t, dtype=torch.bool), shard_of(pcfg, mesh))
     x = params["embed"][input_ids]
     rope = _rope(cfg, torch.arange(n, device=dev), dev)
     for i in range(cfg.num_layers):
@@ -252,11 +257,28 @@ def paged_prefill_seq(
             state["key_residual"][i, seq_id, :, : n - n4] = k_st[0, :, n4:]
             state["value_residual"][i, seq_id, :, : n - n4] = v_st[0, :, n4:]
         attn = causal_attention(q, k, v).transpose(1, 2).reshape(1, n, -1)
-        x = x + F.linear(attn, lp["wo"]).to(x.dtype)
+        x = x + _attn_out(attn, lp, mesh).to(x.dtype)
         h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp).to(x.dtype)
+        x = x + _mlp(h, lp, mesh).to(x.dtype)
     _mark_admitted(state, sid, torch.tensor([n], device=dev))
     return _logits(params, cfg, x[:, -1:])[:, 0], state
+
+
+def _history_pages(state: PagedState, tables, sid: torch.Tensor, li: int, nph: int):
+    """(key arena, value arena, outlier kwargs) of layer li over the slots'
+    first nph pages of (this rank's) page table, unallocated entries read as
+    the scratch page."""
+    raw = state["page_table"][sid.long(), :nph]
+    h_pages = torch.where(raw >= 0, raw, state["key_pool"].shape[1] - 1)
+    okw = {}
+    if "key_outlier_pool" in state:
+        okw.update(koidx=tables["k_outlier_idx"][li],
+                   k_outliers=_gather_history(state["key_outlier_pool"], li, h_pages))
+    if "value_outlier_pool" in state:
+        okw.update(voidx=tables["v_outlier_idx"][li],
+                   v_outliers=_gather_history(state["value_outlier_pool"], li, h_pages))
+    return (_gather_history(state["key_pool"], li, h_pages),
+            _gather_history(state["value_pool"], li, h_pages), okw)
 
 
 def _gather_history(pool: torch.Tensor, li: int, h_pages: torch.Tensor) -> torch.Tensor:
@@ -272,7 +294,7 @@ def _gather_history(pool: torch.Tensor, li: int, h_pages: torch.Tensor) -> torch
 @torch.no_grad()
 def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.ndarray,
                         n_valid: Sequence[int], state: PagedState, tables, chunk: int,
-                        use_kernel: Optional[bool], hist_block: int = 2048):
+                        use_kernel: Optional[bool], hist_block: int = 2048, mesh=None):
     """The chunked-admission loop over S equal-bucket slots. seq_ids (S,)
     host ints; prompts (S, n_pad) host integers, zero-padded to a multiple
     of `chunk`; n_valid (S,) real lengths. Per chunk and layer: encode and
@@ -288,7 +310,6 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
     nv4 = (nv // WORD) * WORD
     ids_all = torch.from_numpy(np.ascontiguousarray(prompts)).to(dev)
     scale = 1.0 / (cfg.head_dim**0.5)
-    scratch = state["key_pool"].shape[1] - 1
     history = pq_chunk_history_attention if use_kernel is not False else _history_partial
     causal = causal_partial if use_kernel is not False else causal_partial_plain
     x = None
@@ -296,11 +317,7 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
         nc = min(chunk, n_pad - s0)
         last_chunk = s0 + nc == n_pad
         t = (s0 + torch.arange(nc, device=dev))[None, :].expand(S, nc)
-        pages, offs = token_pages(state, sid, t, t < nv4[:, None])
-        if s0:
-            nph = -(-s0 // pcfg.page_size)
-            h_raw = state["page_table"][sid.long(), :nph]
-            h_pages = torch.where(h_raw >= 0, h_raw, scratch)
+        pages, offs = token_pages(state, sid, t, t < nv4[:, None], shard_of(pcfg, mesh))
         x = params["embed"][ids_all[:, s0:s0 + nc]]
         rope = _rope(cfg, s0 + torch.arange(nc, device=dev), dev)
         for i in range(cfg.num_layers):
@@ -312,17 +329,14 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
             k_st = k if Rk is None else _opq_rotate(k, Rk)
             v_st = v if Rv is None else _opq_rotate(v, Rv)
             if s0:
-                hokw = {}
-                if "key_outlier_pool" in state:
-                    hokw.update(koidx=tables["k_outlier_idx"][i],
-                                k_outliers=_gather_history(state["key_outlier_pool"], i, h_pages))
-                if "value_outlier_pool" in state:
-                    hokw.update(voidx=tables["v_outlier_idx"][i],
-                                v_outliers=_gather_history(state["value_outlier_pool"], i, h_pages))
-                out_h, lse_h = history(
-                    q if Rk is None else _opq_rotate(q, Rk), _gather_history(state["key_pool"], i, h_pages),
-                    _gather_history(state["value_pool"], i, h_pages), tables["key"][i],
-                    tables["value"][i], s0, scale, hist_block=hist_block, **hokw)
+                q_h = q if Rk is None else _opq_rotate(q, Rk)
+
+                def hist(n_prev, q_h=q_h, i=i):  # over this rank's pages of the first n_prev tokens
+                    ka, va, hokw = _history_pages(state, tables, sid, i, -(-n_prev // pcfg.page_size))
+                    return history(q_h, ka, va, tables["key"][i], tables["value"][i], n_prev, scale,
+                                   hist_block=hist_block, **hokw)
+
+                out_h, lse_h = sharded_history(mesh, pcfg, q_h, s0, hist)
                 if Rv is not None:
                     out_h = _opq_rotate(out_h, Rv.t())
                 attn, _ = merge_two_partials(attn, lse_c, out_h, lse_h)
@@ -337,9 +351,9 @@ def _admit_chunked_impl(params, cfg, pcfg, seq_ids: Sequence[int], prompts: np.n
                     tail = torch.gather(new, 2, ridx.expand(S, new.shape[1], WORD, new.shape[3]))
                     state[name][i, sid.long(), :, :WORD] = tail.to(state[name].dtype)
             attn = attn.to(x.dtype).transpose(1, 2).reshape(S, nc, -1)
-            x = x + F.linear(attn, lp["wo"]).to(x.dtype)
+            x = x + _attn_out(attn, lp, mesh).to(x.dtype)
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-            x = x + _mlp(h, lp).to(x.dtype)
+            x = x + _mlp(h, lp, mesh).to(x.dtype)
     last = torch.clamp(nv - 1 - (n_pad - x.shape[1]), 0, x.shape[1] - 1)
     x_last = torch.gather(x, 1, last[:, None, None].expand(S, 1, x.shape[2]))
     _mark_admitted(state, sid, nv)
@@ -380,10 +394,9 @@ def paged_admit_chunked(
     pages, which must already be allocated for the full prompt. The prompt is
     padded to a multiple of `chunk`. Returns (last-real-token logits (1, V)
     f32, the state, updated in place)."""
-    _unsupported(mesh=mesh)
     ids, lens = _pad_prompts([np.asarray(prompt)], chunk)
     return _admit_chunked_impl(params, cfg, pcfg, [int(seq_id)], ids, lens, state, tables, chunk,
-                               use_kernel, hist_block)
+                               use_kernel, hist_block, mesh)
 
 
 def paged_admit_chunked_batch(
@@ -404,7 +417,6 @@ def paged_admit_chunked_batch(
     the per-chunk transformer costs amortize over the group. Real lengths may
     differ within the bucket; pages must be pre-allocated per slot. Returns
     (last-real-token logits (S, V) f32, the state)."""
-    _unsupported(mesh=mesh)
     ids, lens = _pad_prompts(prompts, chunk)
     return _admit_chunked_impl(params, cfg, pcfg, list(seq_ids), ids, lens, state, tables, chunk,
-                               use_kernel, hist_block)
+                               use_kernel, hist_block, mesh)

@@ -338,14 +338,21 @@ def pq_codes_attention(
     n_split: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-layer entry (counterpart of pq_codes_attention): the stacked
-    kernel on a one-layer view of each argument."""
+    kernel on a one-layer view of each argument. Its own launches (B2's, on
+    CUDA tensors) are counted in `pq_codes_attention.launches` as well."""
     one = lambda t: None if t is None else t.unsqueeze(0)  # noqa: E731
-    return pq_codes_attention_stacked(
+    res = pq_codes_attention_stacked(
         q, one(key_codes), one(value_codes), one(key_cents), one(value_cents), 0, n_codes,
         k_outliers=one(k_outliers), v_outliers=one(v_outliers), k_oidx=one(k_oidx),
         v_oidx=one(v_oidx), k_residual=one(k_residual), v_residual=one(v_residual), r=r,
         n_split=n_split,
     )
+    if q.device.type == "cuda":
+        pq_codes_attention.launches += 1
+    return res
+
+
+pq_codes_attention.launches = 0
 
 
 def decode_bytes(bs: int, nh_k: int, n_codes: int, M: int, M_v: int, OK: int = 0,

@@ -1,5 +1,6 @@
-"""Plain PyTorch PQ decode attention: the oracle the kernel is held against,
-the exact partials around it, and prefill's causal attention.
+"""Plain PyTorch attention pieces: the softmax partials and their LSE
+merges that the kernels' plain versions are built from, exact decode
+attention, and prefill's causal attention.
 
 Counterpart of million_tpu/ops/pq_attention_ref.py. The port's at-rest
 layouts are token-major: codes (bs, nh_k, N, M) uint8 and exact outlier
@@ -14,8 +15,6 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-
-from million_tpu_torch.pq.ops import build_lut, lut_scores, pq_decode
 
 NEG_INF = -1e30
 
@@ -60,56 +59,6 @@ def _softmax_partial(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor, eq: s
         torch.full_like(den[..., 0], NEG_INF),
     )
     return out, lse
-
-
-def pq_decode_attention_ref(
-    q: torch.Tensor,  # (bs, nh, d)
-    key_codes: torch.Tensor,  # (bs, nh_k, N, M) uint8, token-major
-    value_codes: torch.Tensor,  # (bs, nh_k, N, M_v) uint8
-    key_cents: torch.Tensor,  # (M, C, d_m)
-    value_cents: torch.Tensor,  # (M_v, C_v, d_m_v)
-    key_residual: torch.Tensor,  # (bs, nh_k, Lt, d)
-    value_residual: torch.Tensor,
-    n_codes: int,  # valid quantized tokens
-    r: int,  # valid residual tokens
-    scale: float | None = None,
-    layout: str = "strided",
-    k_outliers: torch.Tensor | None = None,  # (bs, nh_k, N, OK) exact channels
-    k_oidx: torch.Tensor | None = None,  # (OK,)
-    v_outliers: torch.Tensor | None = None,  # (bs, nh_k, N, OV)
-    v_oidx: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Fused PQ decode attention for one query token -> (bs, nh, d).
-
-    LUT scores over the quantized codes (plus the exact outlier-channel score
-    term) and exact scores over the residual window, computed as two partials
-    and LSE-merged, all in f32."""
-    bs, nh, d = q.shape
-    N = key_codes.shape[2]
-    if scale is None:
-        scale = 1.0 / d**0.5
-    qf = q.to(torch.float32)
-    code_mask = (torch.arange(N, device=q.device) < n_codes)[None, None, :]
-
-    lut = build_lut(qf, key_cents, layout)  # (bs, nh, M, C)
-    s_q = lut_scores(lut, _gqa_expand(key_codes, nh)) * scale  # (bs, nh, N)
-    if k_outliers is not None:
-        ko = _gqa_expand(k_outliers.to(torch.float32), nh)
-        s_q = s_q + torch.einsum("bho,bhno->bhn", qf[..., k_oidx.long()], ko) * scale
-    v_hat = pq_decode(value_codes, value_cents, layout).to(torch.float32)
-    if v_outliers is not None:
-        v_hat[..., v_oidx.long()] = v_outliers.to(torch.float32)
-    out_q, lse_q = _softmax_partial(s_q, code_mask, _gqa_expand(v_hat, nh), "bhn,bhnk->bhk")
-
-    Lt = key_residual.shape[2]
-    r_mask = (torch.arange(Lt, device=q.device) < r)[None, None, :]
-    kr = _gqa_expand(key_residual.to(torch.float32), nh)
-    vr = _gqa_expand(value_residual.to(torch.float32), nh)
-    s_r = torch.einsum("bhk,bhnk->bhn", qf, kr) * scale
-    out_r, lse_r = _softmax_partial(s_r, r_mask, vr, "bhn,bhnk->bhk")
-
-    merged, _ = merge_partials(torch.stack([out_q, out_r]), torch.stack([lse_q, lse_r]), dim=0)
-    return merged.to(q.dtype)
 
 
 def dense_decode_attention(q, k, v, scale: float | None = None) -> torch.Tensor:

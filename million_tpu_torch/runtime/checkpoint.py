@@ -16,6 +16,14 @@ dtype record and restored bit for bit. A snapshot is written to
 `<path>.tmp` and renamed over `path` (os.replace), so a crash mid-save leaves
 the previous snapshot readable. Weights, configs and codebooks are not part
 of a snapshot: they are the caller's, and must match the saved run.
+
+A ShardedScheduler's snapshot holds the state in the global layout
+(parallel/paged_sharded.py: every shard's slab, in shard order, with local
+page ids): every rank calls save_session, the slabs are gathered and rank 0
+writes. `load_session(..., mesh=)` gives each rank its slab and rebuilds the
+host allocator (per-shard free maps, the local-id table) from it, so a
+session saved on one mesh resumes on any mesh of the same (n_sp, page)
+layout, with any tp that divides the heads.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 from million_tpu_torch import resolve_device
-from million_tpu_torch.runtime.scheduler import FinishedRequest, Request, Scheduler
+from million_tpu_torch.runtime.scheduler import FinishedRequest, Request, Scheduler, ShardedScheduler
 
 _META = "__session_meta__"
 _STATE = "state."
@@ -107,13 +115,20 @@ def _request(d: dict, prompt: np.ndarray) -> Request:
 def save_session(path: str, sched: Scheduler) -> None:
     """Snapshot a live Scheduler. It drains the token pipeline first, so
     every sampled token in flight is in its request's list before the
-    snapshot is taken."""
-    if getattr(sched, "mesh", None) is not None:
-        raise NotImplementedError("mesh serving (ShardedScheduler) is a later slice of the port")
+    snapshot is taken. On a mesh every rank calls it: the slabs are gathered
+    into the global layout and rank 0 writes."""
     sched.drain()
+    state = sched.state
+    if sched.mesh is not None:
+        from million_tpu_torch.parallel.paged_sharded import gather_paged_state
+
+        state = gather_paged_state(state, sched.mesh)
+        if sched.mesh.rank != 0:
+            sched.mesh.barrier()
+            return
     arrays: Dict[str, np.ndarray] = {}
     dtypes = {}
-    for k, v in sched.state.items():
+    for k, v in state.items():
         arrays[_STATE + k], dtypes[k] = _to_numpy(v)
     for k in HOST_MIRRORS:
         arrays[_HOST + k] = np.asarray(getattr(sched, k))
@@ -148,35 +163,52 @@ def save_session(path: str, sched: Scheduler) -> None:
     }
     arrays[_META] = _meta_array(meta)
     _atomic_savez(path, arrays)
+    if sched.mesh is not None:
+        sched.mesh.barrier()
 
 
 def load_session(path: str, params, cfg, pcfg, tables, sampling=None, device="cuda", mesh=None) -> Scheduler:
     """Restore a Scheduler saved by save_session on `device`. `params`, `cfg`,
     `pcfg` and `tables` are not part of the snapshot and must match the saved
     run's; a state whose keys or shapes differ from what `pcfg` builds is
-    refused with ValueError. `sampling` is the run's (greedy when None)."""
+    refused with ValueError. `sampling` is the run's (greedy when None).
+    With `mesh`, every rank restores a ShardedScheduler holding its slab
+    (the mesh's device; `device` is not used)."""
     from million_tpu_torch.runtime.sampling import SamplingConfig
 
-    if mesh is not None:
-        raise NotImplementedError("mesh serving (ShardedScheduler) is a later slice of the port")
     with np.load(path) as z:
         meta = _read_meta(z)
         opts = meta["options"]
-        sched = Scheduler(params, cfg, pcfg, tables, sampling if sampling is not None else SamplingConfig(),
-                          admit_chunk=opts["admit_chunk"], admit_batch=opts["admit_batch"],
-                          tick_chain=opts["tick_chain"], device=device)
+        kw = dict(admit_chunk=opts["admit_chunk"], admit_batch=opts["admit_batch"],
+                  tick_chain=opts["tick_chain"])
+        sampling = sampling if sampling is not None else SamplingConfig()
+        if mesh is not None:
+            sched = ShardedScheduler(params, cfg, pcfg, tables, sampling, mesh=mesh, **kw)
+        else:
+            sched = Scheduler(params, cfg, pcfg, tables, sampling, device=device, **kw)
         got, want = sorted(meta["dtypes"]), sorted(sched.state)
         if got != want:
             raise ValueError(f"snapshot state keys {got} do not match this configuration's {want}")
+        state = {}
         for k in got:
             a = z[_STATE + k]
-            if tuple(a.shape) != tuple(sched.state[k].shape):
+            want_shape = tuple(sched.state[k].shape) if mesh is None else _global_shape(k, sched)
+            if tuple(a.shape) != want_shape:
                 raise ValueError(f"snapshot state[{k}] shape {a.shape} != configured "
-                                 f"{tuple(sched.state[k].shape)}: a pcfg mismatch")
-            t = _to_tensor(a, meta["dtypes"][k], sched.device)
+                                 f"{want_shape}: a pcfg mismatch")
+            t = _to_tensor(a, meta["dtypes"][k], "cpu" if mesh is not None else sched.device)
             if t.dtype != sched.state[k].dtype:
                 raise ValueError(f"snapshot state[{k}] dtype {t.dtype} != configured {sched.state[k].dtype}")
-            sched.state[k] = t
+            state[k] = t
+        if mesh is not None:
+            from million_tpu_torch.parallel.paged_sharded import slice_paged_state
+
+            # the host allocator from the snapshot's global table and free maps
+            sched.h_table = state["page_table"].numpy().copy()
+            sched.h_used = state["used"].numpy().astype(bool).reshape(sched.h_used.shape)
+            sched.h_alloc = state["seq_n_pages"].numpy().astype(np.int64)
+            state = slice_paged_state(state, pcfg, mesh)
+        sched.state = state
         for k in HOST_MIRRORS:
             setattr(sched, k, z[_HOST + k].copy())
         sched.last_token = torch.from_numpy(z[_HOST + "last_token"].copy()).to(sched.device)
@@ -196,3 +228,17 @@ def load_session(path: str, params, cfg, pcfg, tables, sampling=None, device="cu
     sched.pipeline_depth = int(opts["pipeline_depth"])
     sched.admit_skip_window = int(opts["admit_skip_window"])
     return sched
+
+
+def _global_shape(key: str, sched) -> tuple:
+    """The global-layout shape of a ShardedScheduler's state[key]."""
+    from million_tpu_torch.parallel.paged_sharded import _seq_dim, _tp_dim
+
+    shape = list(sched.state[key].shape)
+    if key == "used":
+        return (sched._n_sp, sched._P_l)
+    if _tp_dim(key) is not None:
+        shape[_tp_dim(key)] *= sched.mesh.size("tp")
+    if _seq_dim(key) is not None:
+        shape[_seq_dim(key)] *= sched._n_sp
+    return tuple(shape)

@@ -5,6 +5,12 @@ Tokens stay on the device across steps and nothing reads them back until the
 loop ends; the flush schedule and the arena fill level are host integers.
 On the card TTFT and TPOT come from CUDA events recorded on the stream; on
 the CPU from the host clock.
+
+On a mesh (parallel/mesh.py) every rank calls generate with the whole batch
+and its own shards of the parameters and cache: it runs its dp slice of the
+batch, rank 0 samples and broadcasts, and every rank returns the same
+tokens. `sequence_parallel=True` admits the prompt through
+parallel/sp_prefill.prefill_sp.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 from million_tpu_torch import resolve_device
 from million_tpu_torch.models import llama
 from million_tpu_torch.models.chunked_prefill import chunked_prefill
-from million_tpu_torch.runtime.sampling import SamplingConfig, sample
+from million_tpu_torch.parallel.mesh import seq_shard
+from million_tpu_torch.runtime.sampling import SamplingConfig, dp_slice, sample_on_mesh
 
 
 @dataclasses.dataclass
@@ -53,10 +60,11 @@ class _Clock:
 
 
 def capacity_check(n_prompt: int, max_new_tokens: int, cache: Dict[str, Any],
-                   mode: str, flush_chunk: int) -> None:
-    """Raise before prefill when the generation would overflow the cache."""
+                   mode: str, flush_chunk: int, n_seq: int = 1) -> None:
+    """Raise before prefill when the generation would overflow the cache
+    (an arena split over n_seq sequence shards holds n_seq times its own)."""
     if mode != "dense":
-        n_max = cache["key_codes"].shape[3]
+        n_max = cache["key_codes"].shape[3] * n_seq
         lt = cache["key_residual"].shape[3]
         tail0 = n_prompt % 4
         fch = flush_chunk if 0 < flush_chunk < lt else lt
@@ -94,6 +102,8 @@ def generate(
     prefill_hist_block: int = 4096,  # history tokens the plain history route decodes at a time
     flush_chunk: int = 0,  # 0: flush the whole window; F < Lt: the oldest F rows
     device="cuda",
+    mesh=None,  # parallel.mesh.Mesh: params and cache are this rank's shards
+    sequence_parallel: bool = False,  # admit through prefill_sp (needs mesh, a PQ mode)
 ) -> Tuple[GenerationResult, Dict[str, Any]]:
     """Prefill + decode loop. Returns (result, the cache, updated in place).
 
@@ -104,8 +114,8 @@ def generate(
     version (CPU tensors); the kernel on the card tiles the history itself.
 
     selfcheck_every=N (mode "pq_kernel"): every N decode steps the step first
-    runs through the plain oracle (mode "pq") on the same cache, and the max
-    logit gap is recorded; the oracle's residual writes are then overwritten
+    runs through the plain version (mode "pq") on the same cache, and the max
+    logit gap is recorded; the plain step's residual writes are then overwritten
     by the kernel step. Timings under selfcheck include the extra forward."""
     dev = resolve_device(device)
     if input_ids.device.type != dev.type:
@@ -117,19 +127,27 @@ def generate(
         raise ValueError("max_new_tokens must be >= 1")
     if prefill_chunk and mode == "dense":
         raise ValueError("prefill_chunk requires a PQ mode (quantized history)")
-    capacity_check(n_prompt, max_new_tokens, cache, mode, flush_chunk)
+    n_seq = 1 if mode == "dense" else seq_shard(mesh)[1]
+    capacity_check(n_prompt, max_new_tokens, cache, mode, flush_chunk, n_seq)
+    if sequence_parallel and (mesh is None or mode == "dense" or prefill_chunk):
+        raise ValueError("sequence_parallel admits a PQ cache on a mesh, without prefill_chunk")
     gen = torch.Generator(device=dev).manual_seed(seed)
     clock = _Clock(dev)
+    ids = dp_slice(input_ids, mesh)
 
     t0 = clock.mark()
     if prefill_chunk:
-        last_logits, _ = chunked_prefill(params, cfg, input_ids, cache, cents,
-                                         chunk=prefill_chunk, hist_block=prefill_hist_block)
+        last_logits, _ = chunked_prefill(params, cfg, ids, cache, cents, chunk=prefill_chunk,
+                                         hist_block=prefill_hist_block, mesh=mesh)
+    elif sequence_parallel:
+        from million_tpu_torch.parallel.sp_prefill import prefill_sp
+
+        last_logits = prefill_sp(params, cfg, ids, cache, cents, mesh)
     else:
-        last_logits = llama.prefill(params, cfg, input_ids, cache, cents,
+        last_logits = llama.prefill(params, cfg, ids, cache, cents,
                                     mode="dense" if mode == "dense" else "pq",
-                                    last_logit_only=True)[:, -1]
-    tok = sample(last_logits, gen, sampling)
+                                    last_logit_only=True, mesh=mesh)[:, -1]
+    tok = sample_on_mesh(last_logits, gen, sampling, mesh)
     t1 = clock.mark()
 
     toks = [tok]
@@ -146,7 +164,7 @@ def generate(
     for i in range(max_new_tokens - 1):
         pos = n_prompt + i
         if pq and r_host >= lt_host:
-            llama.flush_windows(cache, cents, n=flush_chunk)
+            llama.flush_windows(cache, cents, n=flush_chunk, mesh=mesh)
             r_host -= f_host
             codes_host += f_host
             n_flushes += 1
@@ -155,12 +173,14 @@ def generate(
         r_host += 1
         ref = None
         if selfcheck_every and mode == "pq_kernel" and i % selfcheck_every == 0:
-            ref = llama.decode_step(params, cfg, tok, pos, cache, cents, mode="pq")
+            ref = llama.decode_step(params, cfg, dp_slice(tok, mesh), pos, cache, cents,
+                                    mode="pq", mesh=mesh)
             cache["r"] -= 1  # the kernel step rewrites the same residual row
-        logits = llama.decode_step(params, cfg, tok, pos, cache, cents, mode=mode)
+        logits = llama.decode_step(params, cfg, dp_slice(tok, mesh), pos, cache, cents,
+                                   mode=mode, mesh=mesh)
         if ref is not None:
             selfcheck = torch.maximum(selfcheck, (logits - ref).abs().max())
-        tok = sample(logits, gen, sampling)
+        tok = sample_on_mesh(logits, gen, sampling, mesh)
         toks.append(tok)
     t2 = clock.mark()
 

@@ -26,8 +26,12 @@ the (k, S) tokens to pinned host memory behind an event; the host reads them
 program; here they are a Python loop of k un-synced steps.
 
 A live scheduler saves to disk and resumes with runtime/checkpoint.py
-(save_session / load_session). Not in this slice: the mesh-backed
-ShardedScheduler (`mesh` raises NotImplementedError).
+(save_session / load_session).
+
+ShardedScheduler serves on a mesh (parallel/paged_sharded.py): every rank
+runs the same host logic on the same requests over its own slab of the pool,
+with a host allocator of per-shard free maps and local page ids; rank 0
+samples and broadcasts, so every rank emits the same tokens.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from million_tpu_torch.models.paged_decode import (
     paged_prefill_seq,
 )
 from million_tpu_torch.ops.pq_attention_kernel import TILE
-from million_tpu_torch.runtime.sampling import SamplingConfig, sample
+from million_tpu_torch.runtime.sampling import SamplingConfig, sample_on_mesh
 
 
 @dataclasses.dataclass
@@ -95,8 +99,7 @@ class Scheduler:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving (ShardedScheduler) is a later slice of the port")
+        self.mesh = mesh
         self.device = resolve_device(device)
         # fail early, not deep inside the first decode: the paged kernel walks
         # whole tiles inside a page
@@ -109,7 +112,7 @@ class Scheduler:
         self.pcfg = pcfg
         self.tables = tables
         self.sampling = sampling
-        self.state = init_paged_state(pcfg, device=self.device)
+        self.state = self._init_state()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         S = pcfg.max_seqs
         self.slot_req: List[Optional[Request]] = [None] * S
@@ -159,6 +162,25 @@ class Scheduler:
                 f"page_size={pcfg.page_size} > 2*admit_chunk({2 * self.admit_chunk}): "
                 "long-prompt admission gathers history at page granularity; use smaller "
                 "pages or raise admit_chunk")
+
+    # ---------------- the allocator (ShardedScheduler overrides these) -----
+    def _init_state(self):
+        if self.mesh is not None:
+            raise ValueError("a mesh-backed scheduler must be constructed as ShardedScheduler")
+        return init_paged_state(self.pcfg, device=self.device)
+
+    def _do_allocate(self, slot: int, k: int) -> None:
+        allocate_pages(self.state, slot, k)
+
+    def _do_free(self, slot: int) -> None:
+        free_sequence(self.state, slot)
+
+    def _fits_grow(self, slot: int, grow: int) -> bool:
+        return grow <= self._free_pages()
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        # the paged state is not split over dp: every rank holds every slot
+        return sample_on_mesh(logits, self.generator, self.sampling, self.mesh, gather_dp=False)
 
     # ---------------- admission -------------------------------------------
     def _fits_fresh(self, needs) -> bool:
@@ -221,7 +243,7 @@ class Scheduler:
         saved = self._preempt_saved.pop(req.rid, [])
         prompt = np.concatenate([np.asarray(req.prompt, np.int64), np.asarray(saved, np.int64)])
         need = self._pages_for(len(prompt) + self.pcfg.Lt)
-        allocate_pages(self.state, slot, need)
+        self._do_allocate(slot, need)
         self.slot_pages[slot] = need
         return prompt, saved
 
@@ -240,12 +262,12 @@ class Scheduler:
         if self._prompt_bucket(n) > self.admit_chunk:
             logits, _ = paged_admit_chunked(
                 self.params, self.cfg, self.pcfg, slot, prompt, self.state, self.tables,
-                chunk=self.admit_chunk)
+                chunk=self.admit_chunk, mesh=self.mesh)
         else:
             ids = torch.from_numpy(prompt[None]).to(self.device)
             logits, _ = paged_prefill_seq(
-                self.params, self.cfg, self.pcfg, slot, ids, self.state, self.tables)
-        tok = sample(logits, self.generator, self.sampling)  # (1,)
+                self.params, self.cfg, self.pcfg, slot, ids, self.state, self.tables, mesh=self.mesh)
+        tok = self._sample(logits)  # (1,)
         self.last_token[slot] = tok[0]
         self._seat(req, slot, n, saved, int(tok[0]))
 
@@ -262,8 +284,8 @@ class Scheduler:
             chunk_eff //= 2
         logits, _ = paged_admit_chunked_batch(
             self.params, self.cfg, self.pcfg, [slot for _, slot, _, _ in entries],
-            [p for _, _, p, _ in entries], self.state, self.tables, chunk=chunk_eff)
-        toks = sample(logits, self.generator, self.sampling)  # (S,)
+            [p for _, _, p, _ in entries], self.state, self.tables, chunk=chunk_eff, mesh=self.mesh)
+        toks = self._sample(logits)  # (S,)
         self.last_token[torch.tensor(slots, device=self.device)] = toks
         toks_host = toks.tolist()
         for i, (req, slot, prompt, saved) in enumerate(entries):
@@ -347,7 +369,7 @@ class Scheduler:
 
     # ---------------- preemption & on-demand growth ------------------------
     def _clear_slot(self, slot: int) -> None:
-        free_sequence(self.state, slot)
+        self._do_free(slot)
         self.slot_req[slot] = None
         self.slot_generated[slot] = []
         self.slot_pos[slot] = 0
@@ -389,7 +411,7 @@ class Scheduler:
                 raise RuntimeError(
                     f"slot {i} needs {need} pages > pages_per_seq "
                     f"({self.pcfg.pages_per_seq}); raise pages_per_seq")
-            while grow > self._free_pages():
+            while not self._fits_grow(i, grow):
                 if len(self.slot_order) == 1:
                     raise RuntimeError(
                         "pool exhausted with a single active sequence; "
@@ -402,7 +424,7 @@ class Scheduler:
                     break
             if self.slot_req[i] is None:
                 continue  # preempted itself; re-queued for later
-            allocate_pages(self.state, i, grow)
+            self._do_allocate(i, grow)
             self.slot_pages[i] += grow
 
     # ---------------- one decode tick --------------------------------------
@@ -416,8 +438,8 @@ class Scheduler:
         tok = self.last_token
         for _ in range(k):
             logits = paged_decode_step(self.params, self.cfg, self.pcfg, tok, None, self.state,
-                                       self.tables, n_bound=n_bound)
-            tok = sample(logits, self.generator, self.sampling)
+                                       self.tables, n_bound=n_bound, mesh=self.mesh)
+            tok = self._sample(logits)
             toks.append(tok)
         self.ticks_dispatched += k
         return torch.stack(toks)
@@ -444,7 +466,7 @@ class Scheduler:
             mask[flushing] = True
             if self.device.type == "cuda":  # a pageable copy would wait for the queued ticks
                 mask = mask.pin_memory().to(self.device, non_blocking=True)
-            flush_paged_slots(self.pcfg, self.state, self.tables, mask)
+            flush_paged_slots(self.pcfg, self.state, self.tables, mask, mesh=self.mesh)
             for i in flushing:
                 self.slot_codes[i] += self.pcfg.Lt
                 self.slot_r[i] = 0
@@ -520,3 +542,112 @@ class Scheduler:
         # pipeline: drain so callers see every emitted token
         self.drain()
         return self.finished
+
+
+class ShardedScheduler(Scheduler):
+    """Continuous batching over the mesh-sharded page pool
+    (parallel/paged_sharded.py): every slot's codes are sequence-sharded over
+    the mesh's ("dcn", "sp") axes in contiguous token ranges and head-sharded
+    over tp; decode ticks, window flushes and chunked admission run the
+    kernels per shard with the two-collective LSE merge.
+
+    What changes against Scheduler is the allocator: pages live in per-shard
+    slabs, so placement is host-side, on per-shard free maps (`h_used`
+    (n_sp, P_l)) and a host page table of LOCAL ids (`h_table`); the shard
+    that owns table position j is j // pps_l. Each rank uploads its own
+    columns of the table on the (rare) allocation events. Admission policy,
+    skip-ahead, preemption, the pipelined multi-tick loop and checkpoints are
+    inherited. Every rank constructs it with the same arguments and submits
+    the same requests."""
+
+    def __init__(self, params, cfg, pcfg, tables, *args, mesh=None, **kw):
+        from million_tpu_torch.parallel.paged_sharded import paged_shard_info
+
+        if mesh is None:
+            raise ValueError("ShardedScheduler requires a mesh")
+        n_sp, P_l, pps_l, _ = paged_shard_info(pcfg, mesh)
+        self._n_sp, self._P_l, self._pps_l = n_sp, P_l, pps_l
+        self.h_used = np.zeros((n_sp, P_l), bool)
+        self.h_table = np.full((pcfg.max_seqs, pcfg.pages_per_seq), -1, np.int32)
+        self.h_alloc = np.zeros(pcfg.max_seqs, np.int64)
+        kw.setdefault("device", mesh.device)
+        super().__init__(params, cfg, pcfg, tables, *args, mesh=mesh, **kw)
+
+    def _init_state(self):
+        from million_tpu_torch.parallel.paged_sharded import init_sharded_paged_state
+
+        return init_sharded_paged_state(self.pcfg, self.mesh)
+
+    # ---- host page placement -------------------------------------------
+    def _upload_tables(self) -> None:
+        s = self.mesh.seq_index
+        cols = self.h_table[:, s * self._pps_l:(s + 1) * self._pps_l]
+        self.state["page_table"].copy_(torch.from_numpy(np.ascontiguousarray(cols)))
+        self.state["used"].copy_(torch.from_numpy(self.h_used[s].astype(np.int32)))
+        self.state["seq_n_pages"].copy_(torch.from_numpy(self.h_alloc.astype(np.int32)))
+
+    def _do_allocate(self, slot: int, k: int) -> None:
+        start = int(self.h_alloc[slot])
+        for j in range(start, start + k):
+            s = j // self._pps_l
+            free = np.flatnonzero(~self.h_used[s])
+            if len(free) == 0:
+                raise RuntimeError(
+                    f"shard {s} pool exhausted allocating table position {j} of slot {slot} "
+                    "(guarded by _fits_*; host / scheduler accounting diverged)")
+            self.h_used[s, free[0]] = True
+            self.h_table[slot, j] = free[0]
+        self.h_alloc[slot] += k
+        self._upload_tables()
+
+    def _do_free(self, slot: int) -> None:
+        for j in range(int(self.h_alloc[slot])):
+            pid = self.h_table[slot, j]
+            if pid >= 0:
+                self.h_used[j // self._pps_l, pid] = False
+        self.h_table[slot] = -1
+        self.h_alloc[slot] = 0
+        self._upload_tables()
+        for k in ("seq_n_codes", "seq_r", "seq_active"):
+            self.state[k][slot].fill_(0)
+
+    # ---- per-shard capacity arithmetic ---------------------------------
+    def _shard_demand(self, start: int, k: int) -> np.ndarray:
+        """Pages demanded per shard by table positions [start, start + k)."""
+        d = np.zeros(self._n_sp, np.int64)
+        for j in range(start, start + k):
+            d[j // self._pps_l] += 1
+        return d
+
+    def _fits_fresh(self, needs) -> bool:
+        if any(k > self.pcfg.pages_per_seq for k in needs):
+            return False
+        free_s = self._P_l - self.h_used.sum(axis=1)
+        demand = np.zeros(self._n_sp, np.int64)
+        for k in needs:
+            demand += self._shard_demand(0, k)
+        return bool((demand <= free_s).all())
+
+    def _fits_grow(self, slot: int, grow: int) -> bool:
+        free_s = self._P_l - self.h_used.sum(axis=1)
+        return bool((self._shard_demand(int(self.h_alloc[slot]), grow) <= free_s).all())
+
+    def _free_pages(self) -> int:
+        return self.pcfg.n_pages - int(self.h_used.sum())
+
+    def stats(self) -> Dict:
+        """Pool and slot state from the host allocator (no device read: a
+        slab's table columns alone cannot tell a shard's unallocated tail
+        from corruption)."""
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        errors = sum(int((self.h_table[i, :self.h_alloc[i]] < 0).sum()) for i in active)
+        if errors:
+            raise RuntimeError(f"page-table corruption: {errors} unallocated entries inside "
+                               "active sequences' ranges")
+        used = int(self.h_used.sum())
+        return {"pages_total": self.pcfg.n_pages, "pages_used": used,
+                "pages_free": self.pcfg.n_pages - used,
+                "pages_used_per_shard": self.h_used.sum(axis=1).tolist(),
+                "active_seqs": len(active), "page_table_errors": 0,
+                "waiting_requests": len(self.waiting), "finished_requests": len(self.finished),
+                "in_flight": len(active), "preemptions": self.preemptions}

@@ -139,8 +139,11 @@ def test_shape_mismatch_rejected(rng, models, tmp_path):
         ck.load_session(path, params, CFG, pcfg(n_pages=13), tables, device="cpu")
     with pytest.raises(ValueError, match="keys"):
         ck.load_session(path, params, CFG, pcfg(OK=4), tables, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ck.load_session(path, params, CFG, pcfg(), tables, device="cpu", mesh=object())
+    # a one-device snapshot is not the mesh's global layout (`used` is (n_sp, P_l) there)
+    from million_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="shape"):
+        ck.load_session(path, params, CFG, pcfg(), tables, device="cpu", mesh=make_mesh(device="cpu"))
 
 
 def test_flat_cache_roundtrip_bf16(rng, models, tmp_path):

@@ -246,8 +246,12 @@ def test_contract_errors(rng, params):
                              L, device="cpu")
     with pytest.raises(ValueError, match="PQ mode"):
         generate(tp, TCFG, ids, dense, None, mode="dense", prefill_chunk=16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcp.chunked_prefill(tp, TCFG, ids, caches(gkw)[1], tcents, chunk=16, mesh=object())
+    # the mesh route arrived with the multi-GPU slice: a one-rank mesh changes nothing
+    from million_tpu_torch.parallel.mesh import make_mesh
+
+    want, _ = tcp.chunked_prefill(tp, TCFG, ids, caches(gkw)[1], tcents, chunk=16)
+    got, _ = tcp.chunked_prefill(tp, TCFG, ids, caches(gkw)[1], tcents, chunk=16, mesh=make_mesh(device="cpu"))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_counters_advance_once_per_chunk(rng, params, monkeypatch):

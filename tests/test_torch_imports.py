@@ -67,6 +67,24 @@ def test_sources_cover_the_pipeline_slice():
         assert rel in names, rel
 
 
+def test_sources_cover_the_multi_gpu_slice():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("million_tpu_torch/parallel/distributed.py", "million_tpu_torch/parallel/mesh.py",
+                "million_tpu_torch/parallel/sharded_decode.py", "million_tpu_torch/parallel/ring_attention.py",
+                "million_tpu_torch/parallel/sp_prefill.py", "million_tpu_torch/parallel/paged_sharded.py",
+                "million_tpu_torch/parallel/launch.py", "million_tpu_torch/dryrun.py",
+                "million_tpu_torch/benchmarks/scaling_bench.py", "million_tpu_torch/benchmarks/kernel_bench.py",
+                "million_tpu_torch/utils/download.py"):
+        assert rel in names, rel
+
+
+def test_rank_bodies_import_no_jax():
+    """The spawned ranks of the mesh tests import tests/torch_mesh_ranks.py
+    only: no JAX, nothing of million_tpu."""
+    text = (ROOT / "tests" / "torch_mesh_ranks.py").read_text()
+    assert not FORBIDDEN.search(text) and "importlib" not in text
+
+
 def test_cli_imports_without_building():
     """Importing the CLI and the harnesses builds nothing and imports none of
     the optional packages (safetensors, transformers, datasets, lm_eval)."""

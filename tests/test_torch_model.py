@@ -130,11 +130,11 @@ def test_prefill_logits_match_jax(rng, params, mode):
     np.testing.assert_allclose(last.numpy(), lt[:, -1:].numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("geom", ["dm2", "outlier"])
-def test_decode_across_flush_matches_jax(rng, params, geom):
+def _decode_across_flush(rng, params, geom, port_mode):
     """Prefill 17 tokens, then 12 decode steps with F=4 sub-window flushes
-    (three of them): port "pq_kernel" vs JAX "pq" per step, and the caches
-    (codes, outlier arenas, counters, live residual rows) stay equal."""
+    (three of them): the port's `port_mode` vs JAX "pq" per step at 1e-4,
+    and the caches (codes, outlier arenas, counters, live residual rows)
+    stay equal."""
     jp, tp = params
     jcents, tcents, gkw = make_cents(rng, geom)
     jc, tc = caches(gkw)
@@ -150,10 +150,25 @@ def test_decode_across_flush_matches_jax(rng, params, geom):
             assert_caches_equal(jc, tc)
         lj, jc = jl.decode_step(jp, JCFG, jnp.asarray(tok, jnp.int32), jnp.asarray(17 + t, jnp.int32),
                                 jc, jcents, mode="pq")
-        lt = tl.decode_step(tp, TCFG, torch.from_numpy(tok), 17 + t, tc, tcents, mode="pq_kernel")
+        lt = tl.decode_step(tp, TCFG, torch.from_numpy(tok), 17 + t, tc, tcents, mode=port_mode)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, err_msg=f"step {t}")
     assert flushes >= 2
     assert_caches_equal(jc, tc)
+
+
+@pytest.mark.parametrize("geom", ["dm2", "outlier"])
+def test_decode_across_flush_matches_jax(rng, params, geom):
+    """The port's "pq_kernel" (the kernel's plain version on the CPU)
+    against JAX's "pq" across flushes."""
+    _decode_across_flush(rng, params, geom, "pq_kernel")
+
+
+@pytest.mark.parametrize("geom", ["dm2", "outlier"])
+def test_pq_decode_mode_matches_jax_oracle(rng, params, geom):
+    """The port's mode "pq" (B1's plain version in one pass, through the
+    same sharded-decode entry as "pq_kernel") against JAX's "pq" oracle
+    (pq_decode_attention_ref) across flushes."""
+    _decode_across_flush(rng, params, geom, "pq")
 
 
 def test_dense_decode_matches_jax(rng, params):
@@ -228,8 +243,13 @@ def test_later_slices_raise(rng, params):
     _, tcents, gkw = make_cents(rng, "dm2")
     tc = caches(gkw)[1]
     ids = torch.zeros((BS, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tl.prefill(tp, TCFG, ids, tc, tcents, mesh=object())
+    # the mesh route arrived with the multi-GPU slice: a one-rank mesh gives the same logits and cache
+    from million_tpu_torch.parallel.mesh import make_mesh
+
+    want = tl.prefill(tp, TCFG, ids, tc, tcents)
+    tm = caches(gkw)[1]
+    np.testing.assert_array_equal(tl.prefill(tp, TCFG, ids, tm, tcents, mesh=make_mesh(device="cpu")).numpy(), want.numpy())
+    np.testing.assert_array_equal(tm["key_codes"].numpy(), tc["key_codes"].numpy())
     # distort_recent and return_hidden arrived with the quality slice
     hidden = tl.prefill(tp, TCFG, ids, caches(gkw)[1], tcents, distort_recent=True, return_hidden=True)
     assert hidden.shape == (BS, 4, TCFG.hidden_size)

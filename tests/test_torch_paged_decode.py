@@ -349,14 +349,22 @@ def test_decode_step_matches_jax_step_and_the_flat_oracle(params, chunked_admiss
 def test_unported_routes_raise(rng, params):
     _, tp = params
     _, tt, (_, tcfg) = make_tables(rng)
-    tst = tpc.init_paged_state(tcfg, device="cpu")
+    # the mesh routes arrived with the multi-GPU slice: on a one-rank mesh (one sequence shard, its
+    # slab the whole pool) admission, flush and decode give what they give without one
+    from million_tpu_torch.parallel.mesh import make_mesh
+
     tok = torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tpd.paged_decode_step(tp, TCFG, tcfg, tok, None, tst, tt, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tpd.flush_paged_slots(tcfg, tst, tt, torch.tensor([True, False]), mesh=object())
-    with pytest.raises(NotImplementedError):
-        tpd.paged_admit_chunked(tp, TCFG, tcfg, 0, np.arange(8), tst, tt, chunk=4, mesh=object())
+    outs = []
+    for mesh in (None, make_mesh(device="cpu")):
+        tst = tpc.init_paged_state(tcfg, device="cpu")
+        tpc.allocate_pages(tst, 0, 2)
+        la, _ = tpd.paged_admit_chunked(tp, TCFG, tcfg, 0, np.arange(40) % 7, tst, tt, chunk=16, mesh=mesh)
+        tst["seq_r"][0] = LT
+        tpd.flush_paged_slots(tcfg, tst, tt, torch.tensor([True, False]), mesh=mesh)
+        ld = tpd.paged_decode_step(tp, TCFG, tcfg, tok, None, tst, tt, mesh=mesh)
+        outs.append((la, ld, tst["key_pool"].clone()))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_bf16_admission_with_32_exact_channels(rng, monkeypatch):

@@ -284,7 +284,7 @@ def test_scheduler_rejects_what_it_cannot_serve(rng, params):
         sched.submit(Request(rid=0, prompt=prompt(rng, 4 * 128 + 1), max_new_tokens=1))
     with pytest.raises(ValueError, match="admit_chunk"):
         sched_for(params, tables, pool(page_size=512), admit_chunk=128)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ShardedScheduler"):  # the reference's refusal
         Scheduler(params, CFG, pcfg, tables, mesh=object(), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="cuda"):
