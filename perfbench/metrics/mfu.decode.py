@@ -1,0 +1,8 @@
+"""The dense model's operations for the tokens the window's steps processed,
+over the window, over the bf16 peak (%)."""
+
+from perfbench.readers import mfu_pct
+
+
+def read(run):
+    return mfu_pct(run)
