@@ -32,6 +32,24 @@ ShardedScheduler serves on a mesh (parallel/paged_sharded.py): every rank
 runs the same host logic on the same requests over its own slab of the pool,
 with a host allocator of per-shard free maps and local page ids; rank 0
 samples and broadcasts, so every rank emits the same tokens.
+
+Tracing (utils/profiling.TRACER, process-wide). Counters, always on, ns on
+the host clock: steps; admissions (requests), admitted_tokens, admission_ns;
+flushes, flushed_windows, b7_launches; ticks, dispatch_ns; wait_ns (host
+blocked on a readback); device_ns, device_ticks (a step's device wall
+time: from its begin event, recorded once its slots are known, to its
+readback event, read when its tokens are read. A gap inside the step in
+which the device waits for the host to issue is counted, so this follows
+max(device work, host issue); the device's busy time inside a step comes
+only from a profiler's idle share). Spans,
+while the tracer records: scheduler.step (tokens; device_ns and device_ticks
+once read), scheduler.admit (slots, tokens, chunk; from the allocation until
+the first token is on the host), scheduler.grow (slot, pages, preempted),
+scheduler.flush (slots, b7_launches), scheduler.dispatch (ticks, slots,
+b4_launches), scheduler.readback_wait (step: the id of the step span waited
+for); request events request.submit, request.seated (first token on the
+host), request.preempted, request.finished. The spans go around the calls
+into models/paged_decode.py, which keep their names here.
 """
 
 from __future__ import annotations
@@ -58,8 +76,10 @@ from million_tpu_torch.models.paged_decode import (
     paged_decode_step,
     paged_prefill_seq,
 )
+from million_tpu_torch.ops import pq_encode_kernel, pq_paged_attention_kernel
 from million_tpu_torch.ops.pq_attention_kernel import TILE
 from million_tpu_torch.runtime.sampling import SamplingConfig, sample_on_mesh
+from million_tpu_torch.utils.profiling import TRACER, Span, device_memory_report
 
 
 @dataclasses.dataclass
@@ -80,8 +100,10 @@ class FinishedRequest:
 @dataclasses.dataclass
 class _PendingTick:
     tokens: torch.Tensor  # (k, S) on the host (pinned when the device is a card)
-    ready: Optional[torch.cuda.Event]  # recorded after the copy; None on the CPU
+    ready: Optional[torch.cuda.Event]  # recorded after the copy, with timing; None on the CPU
     entries: List[tuple]  # [(slot, rid)] active at dispatch
+    begin: Optional[torch.cuda.Event] = None  # recorded before the step's flush and ticks, with timing
+    record: Optional[Span] = None  # the step's span, if it was recorded
 
 
 class Scheduler:
@@ -200,6 +222,7 @@ class Scheduler:
                 f"(~{cap} tokens: pages_per_seq={self.pcfg.pages_per_seq} x "
                 f"page_size={self.pcfg.page_size} minus one flush window)")
         self.waiting.append(req)
+        TRACER.event("request.submit", req.rid)
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slot_req):
@@ -255,41 +278,55 @@ class Scheduler:
         self.slot_r[slot] = n % 4
         self.slot_sent[slot] = len(saved) + 1
         self.slot_order.append(slot)
+        TRACER.event("request.seated", req.rid, slot=slot)
+
+    @staticmethod
+    def _admitted(sp: Optional[Span], lens: List[int], chunk: Optional[int]) -> None:
+        TRACER.counters["admissions"] += len(lens)
+        TRACER.counters["admitted_tokens"] += sum(lens)
+        if sp is not None:
+            sp.attrs.update(tokens=sum(lens), chunk=chunk)
 
     def _admit_one(self, req: Request, slot: int) -> None:
-        prompt, saved = self._take(req, slot)
-        n = len(prompt)
-        if self._prompt_bucket(n) > self.admit_chunk:
-            logits, _ = paged_admit_chunked(
-                self.params, self.cfg, self.pcfg, slot, prompt, self.state, self.tables,
-                chunk=self.admit_chunk, mesh=self.mesh)
-        else:
-            ids = torch.from_numpy(prompt[None]).to(self.device)
-            logits, _ = paged_prefill_seq(
-                self.params, self.cfg, self.pcfg, slot, ids, self.state, self.tables, mesh=self.mesh)
-        tok = self._sample(logits)  # (1,)
-        self.last_token[slot] = tok[0]
-        self._seat(req, slot, n, saved, int(tok[0]))
+        with TRACER.span("scheduler.admit", "admission_ns", rid=req.rid, slots=[slot]) as sp:
+            prompt, saved = self._take(req, slot)
+            n = len(prompt)
+            chunk = self.admit_chunk if self._prompt_bucket(n) > self.admit_chunk else None
+            if chunk is not None:
+                logits, _ = paged_admit_chunked(
+                    self.params, self.cfg, self.pcfg, slot, prompt, self.state, self.tables,
+                    chunk=chunk, mesh=self.mesh)
+            else:
+                ids = torch.from_numpy(prompt[None]).to(self.device)
+                logits, _ = paged_prefill_seq(
+                    self.params, self.cfg, self.pcfg, slot, ids, self.state, self.tables, mesh=self.mesh)
+            tok = self._sample(logits)  # (1,)
+            self.last_token[slot] = tok[0]
+            self._seat(req, slot, n, saved, int(tok[0]))
+            self._admitted(sp, [n], chunk)
 
     def _admit_group(self, reqs, slots) -> None:
         """Admit equal-bucket long prompts TOGETHER through one batched
         chunked pass: the per-chunk transformer costs amortize over the
         group."""
-        entries = [(req, slot, *self._take(req, slot)) for req, slot in zip(reqs, slots)]
-        # per-chunk activation transients scale with group size x chunk;
-        # shrink the chunk so the product stays within ~2x the single-slot
-        # budget
-        chunk_eff = self.admit_chunk
-        while len(entries) * chunk_eff > 2 * self.admit_chunk and chunk_eff > 512:
-            chunk_eff //= 2
-        logits, _ = paged_admit_chunked_batch(
-            self.params, self.cfg, self.pcfg, [slot for _, slot, _, _ in entries],
-            [p for _, _, p, _ in entries], self.state, self.tables, chunk=chunk_eff, mesh=self.mesh)
-        toks = self._sample(logits)  # (S,)
-        self.last_token[torch.tensor(slots, device=self.device)] = toks
-        toks_host = toks.tolist()
-        for i, (req, slot, prompt, saved) in enumerate(entries):
-            self._seat(req, slot, len(prompt), saved, int(toks_host[i]))
+        with TRACER.span("scheduler.admit", "admission_ns", slots=list(slots),
+                         rids=[r.rid for r in reqs]) as sp:
+            entries = [(req, slot, *self._take(req, slot)) for req, slot in zip(reqs, slots)]
+            # per-chunk activation transients scale with group size x chunk;
+            # shrink the chunk so the product stays within ~2x the single-slot
+            # budget
+            chunk_eff = self.admit_chunk
+            while len(entries) * chunk_eff > 2 * self.admit_chunk and chunk_eff > 512:
+                chunk_eff //= 2
+            logits, _ = paged_admit_chunked_batch(
+                self.params, self.cfg, self.pcfg, [slot for _, slot, _, _ in entries],
+                [p for _, _, p, _ in entries], self.state, self.tables, chunk=chunk_eff, mesh=self.mesh)
+            toks = self._sample(logits)  # (S,)
+            self.last_token[torch.tensor(slots, device=self.device)] = toks
+            toks_host = toks.tolist()
+            for i, (req, slot, prompt, saved) in enumerate(entries):
+                self._seat(req, slot, len(prompt), saved, int(toks_host[i]))
+            self._admitted(sp, [len(p) for _, _, p, _ in entries], chunk_eff)
 
     def _try_admit(self) -> None:
         while self.waiting:
@@ -353,7 +390,10 @@ class Scheduler:
         while self._pending and (limit is None or len(self._pending) > limit):
             tick = self._pending.pop(0)
             if tick.ready is not None:
-                tick.ready.synchronize()
+                with TRACER.span("scheduler.readback_wait", "wait_ns",
+                                 step=None if tick.record is None else tick.record.id):
+                    tick.ready.synchronize()
+                self._device_time(tick)
             for row in tick.tokens.numpy():  # (k, S): k chained sub-ticks
                 for slot, rid in tick.entries:
                     req = self.slot_req[slot]
@@ -366,6 +406,21 @@ class Scheduler:
                     if (len(self.slot_generated[slot]) >= req.max_new_tokens
                             or (req.eos_id is not None and tok == req.eos_id)):
                         self._retire(slot)
+
+    @staticmethod
+    def _device_time(tick: _PendingTick) -> None:
+        """The device wall time of the tick's step: from its begin event
+        (which the device reaches once the work queued before the step is
+        done) to its ready event, both complete once its tokens are read. A
+        gap in which the host queued nothing before the step is not counted;
+        a gap inside the step, in which the device waits for the host to
+        issue its flush or ticks, is."""
+        ns = round(tick.begin.elapsed_time(tick.ready) * 1e6)
+        k = len(tick.tokens)
+        TRACER.counters["device_ns"] += ns
+        TRACER.counters["device_ticks"] += k
+        if tick.record is not None:
+            tick.record.attrs.update(device_ns=ns, device_ticks=k)
 
     # ---------------- preemption & on-demand growth ------------------------
     def _clear_slot(self, slot: int) -> None:
@@ -392,6 +447,7 @@ class Scheduler:
         self._clear_slot(slot)
         self.waiting.insert(0, req)
         self.preemptions += 1
+        TRACER.event("request.preempted", req.rid, slot=slot)
 
     def _grow_for_flush(self) -> None:
         """Allocate pages ahead of any slot whose window flush fires THIS
@@ -411,21 +467,26 @@ class Scheduler:
                 raise RuntimeError(
                     f"slot {i} needs {need} pages > pages_per_seq "
                     f"({self.pcfg.pages_per_seq}); raise pages_per_seq")
-            while not self._fits_grow(i, grow):
-                if len(self.slot_order) == 1:
-                    raise RuntimeError(
-                        "pool exhausted with a single active sequence; "
-                        "n_pages is too small for this request")
-                # the YOUNGEST active slot pays, possibly the requester
-                # itself, preserving oldest-first service
-                youngest = self.slot_order[-1]
-                self._preempt(youngest)
-                if youngest == i:
-                    break
-            if self.slot_req[i] is None:
-                continue  # preempted itself; re-queued for later
-            self._do_allocate(i, grow)
-            self.slot_pages[i] += grow
+            with TRACER.span("scheduler.grow", slot=i, pages=grow) as sp:
+                preempted = []
+                while not self._fits_grow(i, grow):
+                    if len(self.slot_order) == 1:
+                        raise RuntimeError(
+                            "pool exhausted with a single active sequence; "
+                            "n_pages is too small for this request")
+                    # the YOUNGEST active slot pays, possibly the requester
+                    # itself, preserving oldest-first service
+                    youngest = self.slot_order[-1]
+                    self._preempt(youngest)
+                    preempted.append(youngest)
+                    if youngest == i:
+                        break
+                if sp is not None:
+                    sp.attrs["preempted"] = preempted
+                if self.slot_req[i] is None:
+                    continue  # preempted itself; re-queued for later
+                self._do_allocate(i, grow)
+                self.slot_pages[i] += grow
 
     # ---------------- one decode tick --------------------------------------
     @torch.no_grad()
@@ -436,13 +497,20 @@ class Scheduler:
         to the next step. Returns the (k, S) tokens, still on the device."""
         toks = []
         tok = self.last_token
-        for _ in range(k):
-            logits = paged_decode_step(self.params, self.cfg, self.pcfg, tok, None, self.state,
-                                       self.tables, n_bound=n_bound, mesh=self.mesh)
-            tok = self._sample(logits)
-            toks.append(tok)
+        b4 = pq_paged_attention_kernel.pq_paged_attention_stacked.launches
+        live = sum(r is not None for r in self.slot_req)
+        with TRACER.span("scheduler.dispatch", "dispatch_ns", ticks=k, slots=live) as sp:
+            for _ in range(k):
+                logits = paged_decode_step(self.params, self.cfg, self.pcfg, tok, None, self.state,
+                                           self.tables, n_bound=n_bound, mesh=self.mesh)
+                tok = self._sample(logits)
+                toks.append(tok)
+            out = torch.stack(toks)
+        if sp is not None:
+            sp.attrs["b4_launches"] = pq_paged_attention_kernel.pq_paged_attention_stacked.launches - b4
         self.ticks_dispatched += k
-        return torch.stack(toks)
+        TRACER.counters["ticks"] += k
+        return out
 
     def step(self) -> int:
         """Admit what fits, flush any full residual windows (grow pages
@@ -451,12 +519,24 @@ class Scheduler:
         Returns the number of tokens dispatched (active slots x k). With
         `pipeline` (default), the sampled tokens of tick t are read after
         tick t+pipeline_depth is dispatched."""
+        TRACER.counters["steps"] += 1
+        with TRACER.span("scheduler.step") as record:
+            n = self._step(record)
+            if record is not None:
+                record.attrs["tokens"] = n
+        return n
+
+    def _step(self, record: Optional[Span]) -> int:
         self._try_admit()
         self._grow_for_flush()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             self._process_pending()  # drain when going idle
             return 0
+        begin = None
+        if self.device.type == "cuda":
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record()
 
         # window-flush batching: encode and write full windows ONCE per Lt
         # tokens per slot; the decode step itself never encodes
@@ -466,7 +546,15 @@ class Scheduler:
             mask[flushing] = True
             if self.device.type == "cuda":  # a pageable copy would wait for the queued ticks
                 mask = mask.pin_memory().to(self.device, non_blocking=True)
-            flush_paged_slots(self.pcfg, self.state, self.tables, mask, mesh=self.mesh)
+            b7 = pq_encode_kernel.pq_encode_fused_stacked.launches
+            with TRACER.span("scheduler.flush", slots=flushing) as sp:
+                flush_paged_slots(self.pcfg, self.state, self.tables, mask, mesh=self.mesh)
+            b7 = pq_encode_kernel.pq_encode_fused_stacked.launches - b7
+            TRACER.counters["flushes"] += 1
+            TRACER.counters["flushed_windows"] += len(flushing)
+            TRACER.counters["b7_launches"] += b7
+            if sp is not None:
+                sp.attrs["b7_launches"] = b7
             for i in flushing:
                 self.slot_codes[i] += self.pcfg.Lt
                 self.slot_r[i] = 0
@@ -493,11 +581,12 @@ class Scheduler:
         if self.device.type == "cuda":
             host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
             host.copy_(toks, non_blocking=True)
-            ready = torch.cuda.Event()
+            ready = torch.cuda.Event(enable_timing=True)
             ready.record()
         else:
             host, ready = toks.clone(), None
-        self._pending.append(_PendingTick(host, ready, [(i, self.slot_req[i].rid) for i in active]))
+        self._pending.append(_PendingTick(host, ready, [(i, self.slot_req[i].rid) for i in active],
+                                          begin, record))
         # this tick is dispatched; reading older ticks' tokens now overlaps
         # their copy with device compute (pipeline=False processes everything
         # at once, the synchronous behaviour)
@@ -510,10 +599,15 @@ class Scheduler:
             rid=req.rid, tokens=np.asarray(self.slot_generated[slot], np.int32),
             prompt_len=len(req.prompt)))
         self._clear_slot(slot)
+        TRACER.event("request.finished", req.rid, tokens=len(self.finished[-1].tokens))
 
     def stats(self) -> Dict:
-        """Serving observability: pool and slot state plus queue depths.
-        Reads the bookkeeping arrays back (waits for the device)."""
+        """The operator's read of a live scheduler: pool and slot state,
+        queue depths, preemptions, the tracer's counters (`counters`: the
+        process's since it started or since TRACER.reset(); see the module
+        docstring) and the card's memory (`device_memory`,
+        utils/profiling.device_memory_report; None off the card). Reads the
+        bookkeeping arrays back (waits for the device)."""
         s = paged_cache_stats(self.state, self.pcfg)
         if s["page_table_errors"]:
             # the -1 exhaustion sentinel reached the device table: host
@@ -527,7 +621,11 @@ class Scheduler:
         s["finished_requests"] = len(self.finished)
         s["in_flight"] = sum(r is not None for r in self.slot_req)
         s["preemptions"] = self.preemptions
+        s.update(self._trace_stats())
         return s
+
+    def _trace_stats(self) -> Dict:
+        return {"counters": dict(TRACER.counters), "device_memory": device_memory_report(self.device)}
 
     def run_to_completion(self, max_ticks: int = 100000) -> List[FinishedRequest]:
         ticks = 0
@@ -636,9 +734,9 @@ class ShardedScheduler(Scheduler):
         return self.pcfg.n_pages - int(self.h_used.sum())
 
     def stats(self) -> Dict:
-        """Pool and slot state from the host allocator (no device read: a
-        slab's table columns alone cannot tell a shard's unallocated tail
-        from corruption)."""
+        """Scheduler.stats()'s read, pool and slot state from the host
+        allocator (no device read: a slab's table columns alone cannot tell
+        a shard's unallocated tail from corruption)."""
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         errors = sum(int((self.h_table[i, :self.h_alloc[i]] < 0).sum()) for i in active)
         if errors:
@@ -650,4 +748,4 @@ class ShardedScheduler(Scheduler):
                 "pages_used_per_shard": self.h_used.sum(axis=1).tolist(),
                 "active_seqs": len(active), "page_table_errors": 0,
                 "waiting_requests": len(self.waiting), "finished_requests": len(self.finished),
-                "in_flight": len(active), "preemptions": self.preemptions}
+                "in_flight": len(active), "preemptions": self.preemptions, **self._trace_stats()}

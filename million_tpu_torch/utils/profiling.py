@@ -1,32 +1,35 @@
-"""Tracing and timing utilities: the reference's Timer / Ticker subsystem
-over torch.profiler and CUDA synchronisation.
+"""Tracing and timing: the port's one tracer, the profiler's exporter, the
+card's memory and a per-kernel breakdown.
 
-Counterpart of million_tpu/utils/profiling.py:
-  * named_scope        - torch.profiler.record_function: a named range in a
-                         trace (the Timer names of the reference's ranges);
+Counterpart of million_tpu/utils/profiling.py, whose Timer / Ticker
+subsystem the serving path's spans and request events replace here:
+  * TRACER             - the process's Tracer: counters (integer adds and host
+                         clock differences, always on) and spans (recorded
+                         while enabled or while torch.profiler records);
   * trace              - a torch.profiler context (CPU and, with a card, CUDA
-                         activity), exported as a Chrome trace if asked;
-  * StepTimer          - host wall-clock phases, the card synchronised at the
-                         boundaries when the phase's result lives on it;
-  * Ticker             - per-token host timestamps for TTFT / TPOT;
+                         activity), exported as a Chrome trace if asked; the
+                         tracer's spans show in it beside the kernels;
   * device_memory_report - live / peak / total bytes of the card
                          (torch.cuda.memory_stats);
   * trace_op_breakdown - total time per op or kernel name of one call, from
                          the profiler's events (CUDA kernel time on the card,
                          CPU op time on the CPU), in place of the reference's
                          xplane harvest.
+
+The scheduler (runtime/scheduler.py) is the tracer's writer; its spans and
+counters are listed in its module docstring.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
-
-named_scope = torch.profiler.record_function  # with named_scope("attn.decode"): ...
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _activities():
@@ -62,59 +65,150 @@ def _force(x: Any) -> None:
             stack.extend(y)
 
 
-class StepTimer:
-    """Named wall-clock phases with device forcing at the boundaries."""
-
-    def __init__(self):
-        self.durations: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, result: Any = None):
-        t0 = time.perf_counter()
-        yield
-        if result is not None:
-            _force(result)
-        dt = time.perf_counter() - t0
-        self.durations[name] = self.durations.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {
-            k: {"total_s": v, "count": self.counts[k], "mean_s": v / self.counts[k]}
-            for k, v in self.durations.items()
-        }
-
-
-class Ticker:
-    """Per-event host timestamps (the reference's Ticker)."""
-
-    def __init__(self):
-        self.ticks: List[float] = []
-
-    def tick(self) -> None:
-        self.ticks.append(time.perf_counter())
+@dataclasses.dataclass(eq=False)  # spans compare by identity
+class Span:
+    """One recorded range: its name, start and end on time.time_ns() (the
+    clock of torch.profiler's device events, so a span lies against the
+    device trace), its own id, the id of the span it was opened in, the
+    request it serves where there is one, and a few attributes (ticks,
+    slots, tokens, launches). An event is a span that ends where it starts."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    rid: Optional[int] = None
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
-    def intervals(self) -> np.ndarray:
-        return np.diff(np.asarray(self.ticks))
+    def ns(self) -> int:
+        return self.end_ns - self.start_ns
 
-    def tpot_ttft(self) -> Dict[str, float]:
-        iv = self.intervals
-        if len(iv) == 0:
-            return {"ttft_s": float("nan"), "tpot_s": float("nan")}
-        return {
-            "ttft_s": float(iv[0]),
-            "tpot_s": float(iv[1:].mean()) if len(iv) > 1 else float("nan"),
-        }
+
+class _Scope:
+    """Tracer.span's context manager: a span while the tracer records, and
+    the range's host time added to a counter either way."""
+
+    __slots__ = ("tracer", "name", "counter", "rid", "attrs", "span", "t0", "rf")
+
+    def __init__(self, tracer: "Tracer", name: str, counter: Optional[str], rid, attrs: dict):
+        self.tracer, self.name, self.counter, self.rid, self.attrs = tracer, name, counter, rid, attrs
+        self.span = self.rf = None
+
+    def __enter__(self) -> Optional[Span]:
+        tr = self.tracer
+        if tr.recording():
+            self.t0 = time.time_ns()
+            self.span = tr._open(self.name, self.t0, self.rid, self.attrs)
+            if _autograd_profiler._is_profiler_enabled:
+                self.rf = torch.profiler.record_function(self.name)
+                self.rf.__enter__()
+        elif self.counter is not None:
+            self.t0 = time.time_ns()
+        return self.span
+
+    def __exit__(self, *exc) -> bool:
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        if self.span is None and self.counter is None:
+            return False
+        t1 = time.time_ns()
+        if self.span is not None:
+            self.tracer._close(self.span, t1)
+        if self.counter is not None:
+            self.tracer.counters[self.counter] += t1 - self.t0
+        return False
+
+
+class Tracer:
+    """Counters and spans of one process (one thread writes them).
+
+    Counters (`counters`, name -> int) are always on: the writer adds counts
+    and host clock differences (ns) at its boundaries. Spans are recorded
+    only while `enable()` holds or torch.profiler records (its own flag,
+    checked as each span opens); under the profiler each span is also a
+    torch.profiler.record_function range. At most `max_spans` are kept, in
+    the order they end; `dropped` counts the rest."""
+
+    def __init__(self, max_spans: int = 1 << 16):
+        self.max_spans = max_spans
+        self.counters: Dict[str, int] = collections.defaultdict(int)
+        self.spans: List[Span] = []
+        self.dropped = 0
+        self._enabled = False
+        self._open_spans: List[Span] = []
+        self._last_id = 0
+
+    def enable(self) -> None:
+        self._enabled = True
+
+    def disable(self) -> None:
+        self._enabled = False
+
+    def recording(self) -> bool:
+        return self._enabled or _autograd_profiler._is_profiler_enabled
+
+    def reset(self) -> None:
+        """Zero the counters and forget every span."""
+        self.counters.clear()
+        self.spans.clear()
+        self.dropped = 0
+        self._open_spans.clear()
+
+    def span(self, name: str, counter: Optional[str] = None, rid: Optional[int] = None, **attrs) -> _Scope:
+        """`with tracer.span(name, counter) as sp:` records a span (sp is
+        None while not recording) and adds the range's host ns to
+        counters[counter] when a counter is named."""
+        return _Scope(self, name, counter, rid, attrs)
+
+    def event(self, name: str, rid: Optional[int] = None, **attrs) -> None:
+        """A span of no length, in the span open now, while recording; under
+        torch.profiler also an empty record_function range, so the event
+        shows in the profile (and its Chrome trace) beside the kernels."""
+        if self.recording():
+            t = time.time_ns()
+            self._keep(Span(name, t, t, self._new_id(), self._parent(), rid, attrs))
+            if _autograd_profiler._is_profiler_enabled:
+                with torch.profiler.record_function(name):
+                    pass
+
+    def named(self, name: str) -> List[Span]:
+        return [s for s in self.spans if s.name == name]
+
+    def _new_id(self) -> int:
+        self._last_id += 1
+        return self._last_id
+
+    def _parent(self) -> Optional[int]:
+        return self._open_spans[-1].id if self._open_spans else None
+
+    def _open(self, name: str, t0: int, rid, attrs: dict) -> Span:
+        sp = Span(name, t0, t0, self._new_id(), self._parent(), rid, attrs)
+        self._open_spans.append(sp)
+        return sp
+
+    def _close(self, sp: Span, t1: int) -> None:
+        sp.end_ns = t1
+        if sp in self._open_spans:  # and whatever an exception left open inside it
+            del self._open_spans[self._open_spans.index(sp):]
+        self._keep(sp)
+
+    def _keep(self, sp: Span) -> None:
+        if len(self.spans) < self.max_spans:
+            self.spans.append(sp)
+        else:
+            self.dropped += 1
+
+
+TRACER = Tracer()
 
 
 def device_memory_report(device=None) -> Optional[Dict[str, float]]:
     """Live / peak bytes allocated by PyTorch on the card and its total
-    memory; None without a card."""
-    if not torch.cuda.is_available():
-        return None
+    memory; None without a card or for a device that is not one."""
     dev = torch.device("cuda") if device is None else torch.device(device)
+    if not torch.cuda.is_available() or dev.type != "cuda":
+        return None
     stats = torch.cuda.memory_stats(dev)
     return {
         "bytes_in_use": stats.get("allocated_bytes.all.current", 0),

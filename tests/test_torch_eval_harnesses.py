@@ -3,8 +3,8 @@ test_eval_harnesses.py): LongBench metrics equal on the same strings, the
 prediction loop on tests/fixtures/longbench_fixture.jsonl (the same greedy
 text and score as million_tpu's on the same weights), loglikelihood within
 1e-4 of million_tpu's (dense and PQ, f32 test-tiny), the profiling helpers
-(StepTimer, Ticker, the speedtest breakdown through torch.profiler's CPU
-events), the OOM guard (only torch.cuda.OutOfMemoryError is caught) and the
+(the Chrome-trace exporter, the speedtest breakdown through torch.profiler's
+CPU events), the OOM guard (only torch.cuda.OutOfMemoryError is caught) and the
 lm_eval adapter through a stub package."""
 
 import json
@@ -31,7 +31,7 @@ from million_tpu_torch.benchmarks.registry import ByteTokenizer
 from million_tpu_torch.cache.dense_cache import DenseCacheConfig, init_dense_state
 from million_tpu_torch.cache.pq_cache import PQCacheConfig, init_state
 from million_tpu_torch.models import llama as tl
-from million_tpu_torch.utils.profiling import StepTimer, Ticker, device_memory_report, trace, trace_op_breakdown
+from million_tpu_torch.utils.profiling import trace, trace_op_breakdown
 
 JCFG, TCFG = jl.PRESETS["test-tiny"], tl.PRESETS["test-tiny"]
 L, D, NH_K = JCFG.num_layers, JCFG.head_dim, JCFG.num_kv_heads
@@ -143,25 +143,6 @@ def test_loglikelihood_matches_million_tpu(params, cents, mode):
                 {"context_ids": [9, 9], "choices_ids": [[1], [2]], "label": 1}]
     assert tlm.evaluate_multiple_choice(tp, TCFG, mk_t, tc, examples, mode=mode) == \
         jlm.evaluate_multiple_choice(jp, JCFG, mk_j, jc, examples, mode=mode)
-
-
-def test_step_timer_and_ticker():
-    t = StepTimer()
-    with t.phase("a", result=torch.ones(3)):
-        sum(range(1000))
-    with t.phase("a"):
-        pass
-    rep = t.report()
-    assert rep["a"]["count"] == 2 and rep["a"]["total_s"] > 0
-    tk = Ticker()
-    assert np.isnan(tk.tpot_ttft()["ttft_s"])
-    for _ in range(4):
-        tk.tick()
-    assert len(tk.intervals) == 3
-    d = tk.tpot_ttft()
-    assert np.isfinite(d["ttft_s"]) and np.isfinite(d["tpot_s"])
-    if not torch.cuda.is_available():
-        assert device_memory_report() is None
 
 
 def test_trace_and_breakdown_on_cpu(tmp_path):
