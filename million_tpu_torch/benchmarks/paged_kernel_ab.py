@@ -6,7 +6,9 @@ same inputs and card, in turns: B4 at the serving tick's shape (6 slots x
 planner, a bf16 residual window with 97 live rows) and B1 at the flat decode
 step's (bs 4, 32,256 codes of a 32K arena, the same window), in dm2,
 dm4_outlier_c128 and dm16 (M = 8, the wide builds; llama-3.2-3b: 8 KV heads,
-G = 3, d = 128).
+G = 3, d = 128); and B4 alone at the benchmark cell mistral-7b.decode-32k's
+shape (`dm2_cell`: 16 slots x 33,280 codes, 18 pages of 2048 a slot, G = 4, S
+= 1 from the planner).
 
     git archive <commit> million_tpu_torch/csrc | tar -x -C other/
     python3 -m million_tpu_torch.benchmarks.paged_kernel_ab --other other/million_tpu_torch/csrc
@@ -19,13 +21,14 @@ first); --geometries leaves out the ones it does not compute. --knockouts writes
 knock-out copies of this checkout's sources into a temporary directory, each
 one edit of the passes (KNOCKOUTS: a pass alone, a pass with its codebook
 gather replaced by a value computed in registers, a pass with its codebook
-read through L1 instead of staged in shared memory), to split the time among
-the passes and their parts. Every copy is built with the same nvcc flags,
-held against the plain versions (a knock-out's error says only that it ran)
-and timed with CUDA events, this checkout first, then the others, then back
-in reverse order, --iters launches each. One line per kernel, shape and
-geometry: the times, the bound (bytes at 3.35 TB/s) and the errors, with the
-card's name and power limit. Needs a CUDA device.
+read through L1 instead of staged in shared memory, the score pass's lane
+build with its reduce-scatter's shuffles replaced by a lane's own adds), to
+split the time among the passes and their parts. Every copy is built with
+the same nvcc flags, held against the plain versions (a knock-out's error
+says only that it ran) and timed with CUDA events, this checkout first, then
+the others, then back in reverse order, --iters launches each. One line per
+kernel, shape and geometry: the times, the bound (bytes at 3.35 TB/s) and
+the errors, with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,9 +50,13 @@ from million_tpu_torch.ops import pq_paged_attention_kernel as P
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # M, C, exact channels a side; dm16 (M = 8) runs the passes' wide builds
-GEOMETRIES = {"dm2": (64, 256, 0), "dm4_outlier_c128": (32, 128, 16), "dm16": (8, 256, 0)}
+GEOMETRIES = {"dm2": (64, 256, 0), "dm4_outlier_c128": (32, 128, 16), "dm16": (8, 256, 0),
+              "dm2_cell": (64, 256, 0)}
 NH_K, G, D, LT, LIVE_ROWS = 8, 3, 128, 128, 97
 SLOTS, SEQ, PAGE, PAGES_PER_SEQ, POOL_PAGES = 6, 32640, 2048, 17, 104  # the serving tick
+# the cell mistral-7b.decode-32k: 16 slots a little into their decode, Mistral-7B's G = 4;
+# the geometry named here runs B4 only, at this shape
+CELL = dict(slots=16, seq=33280, pages_per_seq=18, pool_pages=288, G=4)
 FLAT_BS, FLAT_N_MAX, FLAT_CODES = 4, 32768, 32256  # the flat decode step
 SOURCES = ("pq_attention_passes.cuh", "pq_paged_attention.cu", "pq_decode_attention.cu")
 VALUE_PASS = "// Pass 2:"  # where the value pass begins in pq_attention_passes.cuh
@@ -71,9 +78,12 @@ KNOCKOUTS = {
         ("return launch_value<G, PAGED>(pv, bs, smem_v, st);",
          "(void)smem_v; return cudaSuccess;", "all")],
     "score_gather_in_registers": [
-        ("*reinterpret_cast<const float2*>(cent)", "make_float2((cent - kc) * 1e-6f, 1e-3f)", "score"),
-        ("*reinterpret_cast<const float4*>(cent)", "make_float4((cent - kc) * 1e-6f, 1e-3f, 2e-3f, 3e-3f)",
+        ("load_cent<W>(v[rr][k], cent);",
+         "for (int w = 0; w < W; ++w) v[rr][k][w] = (cent - kc) * 1e-6f + w * 1e-3f;",
          "score")],
+    "score_reduce_without_shuffles": [
+        ("+= __shfl_xor_sync(0xffffffffu, acc[(r + O) / GP][(r + O) % GP], O);",
+         "+= acc[(r + O) / GP][(r + O) % GP] * 0.5f;", "score")],
     "value_gather_in_registers": [
         ("*reinterpret_cast<const float2*>(cent)", "make_float2((cent - vcol) * 1e-6f, 1e-3f)", "value"),
         ("*reinterpret_cast<const float4*>(cent)", "make_float4((cent - vcol) * 1e-6f, 1e-3f, 2e-3f, 3e-3f)",
@@ -127,38 +137,44 @@ def build_copy(src_dir: Path, out_dir: Path, tag: str):
 
 
 def make_cases(dev, gen, geometries):
-    """name -> (kernel call, plain call, bytes), per geometry, for B4 and B1."""
+    """name -> (kernel call, plain call, bytes), per geometry, for B4 and B1
+    (B4 alone at the cell's shape)."""
     cases = {}
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    perm = torch.randperm(POOL_PAGES, generator=torch.Generator().manual_seed(10))[: SLOTS * PAGES_PER_SEQ]
-    table = perm.reshape(SLOTS, PAGES_PER_SEQ).to(torch.int32).to(dev)
-    lens = torch.full((SLOTS,), SEQ, dtype=torch.int32, device=dev)
-    rows = torch.full((SLOTS,), LIVE_ROWS, dtype=torch.int32, device=dev)
     for geom in geometries:
         M, C, O = GEOMETRIES[geom]
+        cell = geom == "dm2_cell"
+        slots, seq, pps, pool_pages, g = ((CELL["slots"], CELL["seq"], CELL["pages_per_seq"], CELL["pool_pages"],
+                                          CELL["G"]) if cell else (SLOTS, SEQ, PAGES_PER_SEQ, POOL_PAGES, G))
+        perm = torch.randperm(pool_pages, generator=torch.Generator().manual_seed(10))[: slots * pps]
+        table = perm.reshape(slots, pps).to(torch.int32).to(dev)
+        lens = torch.full((slots,), seq, dtype=torch.int32, device=dev)
+        rows = torch.full((slots,), LIVE_ROWS, dtype=torch.int32, device=dev)
         cents = [torch.randn((1, M, C, D // M), generator=gen, device=dev) for _ in range(2)]
         oidx = [torch.randperm(D, generator=torch.Generator().manual_seed(s))[:O].sort().values.to(torch.int32)
                 for s in (1, 2)]
         for c, idx in zip(cents, oidx):  # exact channels have zero centroid components
             for ch in idx.tolist():
                 c[0, ch % M, :, ch // M] = 0.0
-        res = [torch.randn((1, SLOTS, NH_K, LT, D), generator=gen, device=dev).bfloat16() for _ in range(2)]
-        q = torch.randn((SLOTS, NH_K, G, D), generator=gen, device=dev) / D**0.5
-        pools = [torch.randint(0, C, (1, POOL_PAGES + 1, NH_K, PAGE, M), generator=gen, device=dev,
+        res = [torch.randn((1, slots, NH_K, LT, D), generator=gen, device=dev).bfloat16() for _ in range(2)]
+        q = torch.randn((slots, NH_K, g, D), generator=gen, device=dev) / D**0.5
+        pools = [torch.randint(0, C, (1, pool_pages + 1, NH_K, PAGE, M), generator=gen, device=dev,
                                dtype=torch.uint8) for _ in range(2)]
         okw = dict(k_residual=res[0], v_residual=res[1], r=rows)
         if O:
-            okw.update(k_outliers=torch.randn((1, POOL_PAGES + 1, NH_K, PAGE, O), generator=gen,
+            okw.update(k_outliers=torch.randn((1, pool_pages + 1, NH_K, PAGE, O), generator=gen,
                                               device=dev).bfloat16(),
-                       v_outliers=torch.randn((1, POOL_PAGES + 1, NH_K, PAGE, O), generator=gen,
+                       v_outliers=torch.randn((1, pool_pages + 1, NH_K, PAGE, O), generator=gen,
                                               device=dev).bfloat16(),
                        k_oidx=oidx[0][None].to(dev), v_oidx=oidx[1][None].to(dev))
         args = (q, pools[0], pools[1], cents[0], cents[1], 0, table, lens)
-        n_bound = 16 * PAGE
+        n_bound = -(-seq // PAGE) * PAGE
         cases[("B4", geom)] = (
-            lambda a=args, k=okw: P.pq_paged_attention_stacked(*a, n_bound=n_bound, **k),
-            lambda a=args, k=okw: P.pq_paged_attention_plain(*a, n_bound=n_bound, n_sm=n_sm, **k),
-            P.paged_bytes([SEQ] * SLOTS, NH_K, M, M, O, O))
+            lambda a=args, k=okw, nb=n_bound: P.pq_paged_attention_stacked(*a, n_bound=nb, **k),
+            lambda a=args, k=okw, nb=n_bound: P.pq_paged_attention_plain(*a, n_bound=nb, n_sm=n_sm, **k),
+            P.paged_bytes([seq] * slots, NH_K, M, M, O, O))
+        if cell:
+            continue
         qf = q[:FLAT_BS].contiguous()
         arena = [torch.randint(0, C, (1, FLAT_BS, NH_K, FLAT_N_MAX, M), generator=gen, device=dev,
                                dtype=torch.uint8) for _ in range(2)]

@@ -12,7 +12,8 @@
 //
 //   pq_score_kernel: the scores of every token (f32, to a scratch row per
 //     (b, h)) and each split's softmax max and sum, with the K codebook in
-//     shared memory.
+//     shared memory; in its lane build a warp's lanes split a token's dims
+//     and keep their query dims in registers.
 //   pq_value_kernel: P @ V per split from those scores, with the V codebook
 //     in shared memory, V decoded on the fly.
 //   pq_reduce_kernel: the LSE-merge of the splits and of the exact residual
@@ -32,7 +33,7 @@
 #include <algorithm>
 
 #define TILE 256      // tokens per tile
-#define THREADS 512   // threads per block: two per token in the score pass
+#define THREADS 512   // threads per block
 #define NEG_BIG (-1e30f)
 
 struct Params {
@@ -205,6 +206,14 @@ __device__ __forceinline__ const uint8_t* token_rows(const Params& p, const void
   }
 }
 
+// Pass 1: scores of the split's tokens to p.scores, and the split's softmax
+// max and sum to p.ml_part. Two builds:
+//   the lane build (d_m <= 8 with M % 4 == 0: every main path): a warp's
+//     lanes split each token's dims, below;
+//   the wide build (any subspace width and any M, the code rows read byte by
+//     byte where M % 4 != 0): two threads a token, each over half of its
+//     subspaces, with the query in shared memory.
+
 // s[g] += q[g, dim] * v for the GQ groups of four query rows.
 template <int GQ>
 __device__ __forceinline__ void fma_dim(float (&s)[4 * GQ], const float4* qt4, int dim, float v) {
@@ -218,28 +227,9 @@ __device__ __forceinline__ void fma_dim(float (&s)[4 * GQ], const float4* qt4, i
   }
 }
 
-template <int GQ>
-__device__ __forceinline__ void score_code(float (&s)[4 * GQ], const float4* qt4, const float* kc,
-                                           int m, int c, int M, int Ck, int dmk) {
-  const float* cent = kc + ((long)m * Ck + c) * dmk;
-  if (dmk == 2) {
-    const float2 cv = *reinterpret_cast<const float2*>(cent);
-    fma_dim<GQ>(s, qt4, m, cv.x);
-    fma_dim<GQ>(s, qt4, m + M, cv.y);
-  } else if (dmk == 4) {
-    const float4 cv = *reinterpret_cast<const float4*>(cent);
-    fma_dim<GQ>(s, qt4, m, cv.x);
-    fma_dim<GQ>(s, qt4, m + M, cv.y);
-    fma_dim<GQ>(s, qt4, m + 2 * M, cv.z);
-    fma_dim<GQ>(s, qt4, m + 3 * M, cv.w);
-  } else {
-    for (int t = 0; t < dmk; ++t) fma_dim<GQ>(s, qt4, m + t * M, cent[t]);
-  }
-}
-
-// The wide instantiation's term of one code: any subspace width, in float4
-// pieces where it is a multiple of 4 (d_m 16, 32, 64, 128), else one float
-// at a time.
+// The wide build's term of one code: any subspace width, in float4 pieces
+// where it is a multiple of 4 (d_m 16, 32, 64, 128), else one float at a
+// time.
 template <int GQ>
 __device__ __forceinline__ void score_code_wide(float (&s)[4 * GQ], const float4* qt4, const float* kc,
                                                 int m, int c, int M, int Ck, int dmk) {
@@ -258,12 +248,11 @@ __device__ __forceinline__ void score_code_wide(float (&s)[4 * GQ], const float4
   }
 }
 
-// Pass 1: scores of the split's tokens to p.scores, and the split's softmax
-// max and sum to p.ml_part. WIDE = false is the build of d_m <= 8 with M % 4
-// == 0 (every main path); WIDE = true takes any subspace width and any M
-// (the code rows read byte by byte where M % 4 != 0).
-template <int G, bool WIDE, bool PAGED>
-__global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
+// The wide build: threads 2t and 2t + 1 score token n0 + t of a tile, each
+// over half of the subspaces (the second also adds the outlier term), the
+// codebook laid out as in device memory, (M, C, d_m).
+template <int G, bool PAGED>
+__device__ __forceinline__ void score_wide(const Params& p) {
   constexpr int GQ = (G + 3) / 4;  // groups of four query rows
   constexpr int GP = 4 * GQ;       // padded query rows
   constexpr int NW = THREADS / 32;
@@ -290,7 +279,7 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
   const uint8_t* ko_tile[2] = {kobuf, kobuf + kos};  // each slot's first outlier row
   auto prefetch = [&](int buf, int n0) {
     const int nt = min(TILE, end - n0);
-    copy_rows<WIDE>(kbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.kcodes, b, h, n0, M), nt, M, p.rs);
+    copy_rows<true>(kbuf + buf * TILE * p.rs, token_rows<PAGED>(p, p.kcodes, b, h, n0, M), nt, M, p.rs);
     if (p.kout) {
       const uint8_t* at = copy_span(kobuf + buf * kos, token_rows<PAGED>(p, p.kout, b, h, n0, okb), nt * okb);
       if (buf) ko_tile[1] = at; else ko_tile[0] = at;
@@ -315,8 +304,6 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
     m_run[g] = -INFINITY;
     l_run[g] = 0.f;
   }
-  // threads 2t and 2t+1 score token n0 + t, each over part of the
-  // subspaces (the second also adds the outlier term)
   const int t_me = tid >> 1, half = tid & 1;
   const int msplit = (M % 8 == 0) ? M / 2 : M;
   const int m_lo = half ? msplit : 0, m_hi = half ? M : msplit;
@@ -336,31 +323,14 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
     for (int g = 0; g < GP; ++g) s[g] = 0.f;
     if (t_me < nt) {
       const uint8_t* row = kbuf + buf * TILE * p.rs + t_me * p.rs;
-      if constexpr (WIDE) {
-        if (M % 4 == 0) {
-          for (int m0 = m_lo; m0 < m_hi; m0 += 4) {
-            const uint32_t w = *reinterpret_cast<const uint32_t*>(row + m0);
-            for (int k = 0; k < 4; ++k)
-              score_code_wide<GQ>(s, qt4, kc, m0 + k, (w >> (8 * k)) & 0xFF, M, p.Ck, p.dmk);
-          }
-        } else {
-          for (int m = m_lo; m < m_hi; ++m) score_code_wide<GQ>(s, qt4, kc, m, row[m], M, p.Ck, p.dmk);
-        }
-      } else if (msplit % 16 == 0) {
-        for (int m0 = m_lo; m0 < m_hi; m0 += 16) {
-          const uint4 w = *reinterpret_cast<const uint4*>(row + m0);
-          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int k = 0; k < 16; ++k)
-            score_code<GQ>(s, qt4, kc, m0 + k, (ws[k >> 2] >> (8 * (k & 3))) & 0xFF, M, p.Ck, p.dmk);
-        }
-      } else {
+      if (M % 4 == 0) {
         for (int m0 = m_lo; m0 < m_hi; m0 += 4) {
           const uint32_t w = *reinterpret_cast<const uint32_t*>(row + m0);
-#pragma unroll
           for (int k = 0; k < 4; ++k)
-            score_code<GQ>(s, qt4, kc, m0 + k, (w >> (8 * k)) & 0xFF, M, p.Ck, p.dmk);
+            score_code_wide<GQ>(s, qt4, kc, m0 + k, (w >> (8 * k)) & 0xFF, M, p.Ck, p.dmk);
         }
+      } else {
+        for (int m = m_lo; m < m_hi; ++m) score_code_wide<GQ>(s, qt4, kc, m, row[m], M, p.Ck, p.dmk);
       }
       if (p.kout && half) {
         const __nv_bfloat16* ko = reinterpret_cast<const __nv_bfloat16*>(buf ? ko_tile[1] : ko_tile[0]) + t_me * OK;
@@ -419,6 +389,319 @@ __global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
     float* ml = p.ml_part + ((bh * p.S + split) * G + tid) * 2;
     ml[0] = m;
     ml[1] = l;
+  }
+}
+
+// The lane build. A warp scores NB = 32 / GP tokens at a time, and its 32
+// lanes split each token's d dims: lane j takes d / 32 of them, as U units of
+// W centroid components, each unit under one code byte of the token.
+// lane_mapping(d, d_m) picks (W, U); P = d_m / W lanes share a subspace:
+//   W 2, U 2 (d 128, d_m 2): lane j takes subspaces 2j and 2j + 1, whose two
+//     codes it reads as one 16-bit word;
+//   W 4, U 1 (d 128, d_m 4 or 8): subspace j / P, components (j % P) * 4 ..+3;
+//   W = U = 0, the generic mapping (every other narrow geometry, and any
+//     codebook that does not fit in shared memory): lane j takes subspaces
+//     j, j + 32, ... whole, reading the query from shared memory.
+// Outside the generic mapping each lane keeps its dims of the GP query rows
+// in registers for the whole split (qr: 16 floats at G <= 4, 32 above), and
+// lane j also takes exact K channel j (its query values in registers too),
+// then j + 32, ... from shared memory. A step loads its NB code words, then
+// their centroid entries, then runs the FMAs, so that the loads of its
+// tokens overlap.
+//
+// The K codebook is staged subspace-minor, [c][slot][d_m], slot = subspace
+// (for W 2 U 2: subspace 2j + k at slot 32k + j), so the lanes of one load
+// read consecutive floats of their code rows: with d % 32 == 0 every row
+// starts in bank 0, and a warp's load takes the fewest wavefronts its bytes
+// allow (2 for 8-byte entries, 4 for 16-byte ones), whatever the codes. On an
+// H100 at the cell mistral-7b.decode-32k's shape (16 x 33,280 tokens, dm2, G
+// 4) the pass takes ~20 cycles a token on each SM, against ~44 for the
+// earlier design of two threads a token with the query in shared memory; the
+// reduce-scatter's shuffles are about a tenth of it, and centroid values made
+// by arithmetic in place of the loads are slower than the loads
+// (benchmarks/paged_kernel_ab.py's knock-outs).
+//
+// Each lane sums its dims' terms of the NB tokens for all GP rows, 32
+// partial scores, and a reduce-scatter over shuffles (offsets 16, 8, .., 1;
+// at each the lane keeps the lower half of its registers and adds the
+// partner's upper half) leaves lane L the whole score of token L / GP, row
+// L % GP. For that to need no select, lane L keeps value v (token v / GP, row
+// v % GP) in register v ^ L: its token and its rows come in an order of its
+// own, and its query registers are stored in that row order. The scores of a
+// step are then 32 consecutive floats of p.scores, one store. A lane's row is
+// fixed, so it keeps its own online max and sum of its scores, and the block
+// merges them once at the end, lanes then warps in a fixed order: two
+// launches give the same bits. The code tiles come in through cp.async in
+// LANE_STAGES buffers, one barrier a tile.
+#define LANE_STAGES 3
+
+__host__ __device__ inline void lane_mapping(int d, int dmk, int& W, int& U) {
+  W = U = 0;
+  if (d == 128 && dmk == 2) { W = 2; U = 2; }
+  else if (d == 128 && (dmk == 4 || dmk == 8)) { W = 4; U = 1; }
+}
+
+// Stage the K codebook (M, C, d_m) subspace-minor into dst, [c][slot][d_m]:
+// a float4 of dst per thread, from two float2 of the source (W 2 U 2: slots s
+// and s + 1, subspaces 2 (s % 32) + s / 32) or one float4 (W 4: part of
+// subspace f / d_m).
+template <int W, int U>
+__device__ __forceinline__ void stage_lanes(float* dst, const Params& p) {
+  constexpr int D4 = 8 * U * W;  // float4s of a code row (d / 4)
+  const int C = p.Ck, dmk = p.dmk, sh = __ffs(dmk) - 1;
+  const float2* k2 = reinterpret_cast<const float2*>(p.kcent);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < C * D4; i += THREADS) {
+    const int c = i / D4, f = (i % D4) * 4;
+    if constexpr (U == 2) {
+      const int s = f >> 1, m0 = ((s & 31) << 1) | (s >> 5);
+      const float2 a = __ldg(k2 + (long)m0 * C + c), b = __ldg(k2 + (long)(m0 + 2) * C + c);
+      d4[i] = make_float4(a.x, a.y, b.x, b.y);
+    } else {
+      d4[i] = __ldg(reinterpret_cast<const float4*>(p.kcent + ((long)(f >> sh) * C + c) * dmk + (f & (dmk - 1))));
+    }
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void load_cent(float (&v)[W], const float* cent) {
+  if constexpr (W == 2) {
+    const float2 c2 = *reinterpret_cast<const float2*>(cent);
+    v[0] = c2.x; v[1] = c2.y;
+  } else {
+    const float4 c4 = *reinterpret_cast<const float4*>(cent);
+    v[0] = c4.x; v[1] = c4.y; v[2] = c4.z; v[3] = c4.w;
+  }
+}
+
+// One step of the reduce-scatter and the ones after it: register r = rr * GP
+// + c adds the partner's r + O (offsets known at compile time, so the
+// registers stay registers).
+template <int O, int NB, int GP>
+__device__ __forceinline__ void reduce_scatter(float (&acc)[NB][GP]) {
+#pragma unroll
+  for (int r = 0; r < O; ++r)
+    acc[r / GP][r % GP] += __shfl_xor_sync(0xffffffffu, acc[(r + O) / GP][(r + O) % GP], O);
+  if constexpr (O > 1) reduce_scatter<O / 2>(acc);
+}
+
+__device__ __forceinline__ void ml_merge(float& m, float& l, float m2, float l2) {
+  const float mn = fmaxf(m, m2);
+  l = (m == -INFINITY ? 0.f : l * expf(m - mn)) + (m2 == -INFINITY ? 0.f : l2 * expf(m2 - mn));
+  m = mn;
+}
+
+template <int G, int W, int U, bool PAGED>
+__device__ __forceinline__ void score_lanes(const Params& p) {
+  constexpr bool GENERIC = W == 0;
+  constexpr int GQ = (G + 3) / 4;
+  constexpr int GP = 4 * GQ;           // padded query rows: 4 or 8
+  constexpr int LG = GP == 4 ? 2 : 3;  // log2(GP)
+  constexpr int NB = 32 / GP;          // tokens a warp scores at once
+  constexpr int NW = THREADS / 32;
+  constexpr int UR = GENERIC ? 1 : U, WR = GENERIC ? 1 : W;  // register array sizes
+  extern __shared__ float4 smem4[];
+  uint8_t* ptr = reinterpret_cast<uint8_t*>(smem4);
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = lane & (GP - 1), hi = lane >> LG;  // the lane's row and token orders
+  const int d = p.d, M = p.M, OK = p.OK, dmk = p.dmk, Ck = p.Ck;
+  const long bh = (long)b * p.nh_k + h;
+  int start, end;
+  split_span<PAGED>(p, b, split, start, end);
+  float* ml_out = p.ml_part + (bh * p.S + split) * G * 2;
+  if (start >= end) {  // empty split: no barrier below is reached
+    if (tid < G) { ml_out[2 * tid] = NEG_BIG; ml_out[2 * tid + 1] = 0.f; }
+    return;
+  }
+
+  // codebook [c][slot][d_m] in shared memory (always, outside the generic
+  // mapping: pq_score_kernel sends a codebook that does not fit there to the
+  // generic one), else (M, C, d_m) read through L1
+  float* kc = const_cast<float*>(p.kcent);
+  int cstride = dmk;
+  if (!GENERIC || p.cent_in_smem) { kc = reinterpret_cast<float*>(ptr); ptr += (size_t)Ck * d * 4; cstride = d; }
+  uint8_t* kbuf = ptr;  ptr += LANE_STAGES * TILE * p.rs;
+  const int okb = OK * 2, kos = outlier_slot(OK);
+  uint8_t* kobuf = ptr; ptr += LANE_STAGES * kos;
+  float* qt = reinterpret_cast<float*>(ptr);  ptr += d * GP * 4;  // qt[dim][GP]
+  float* qot = reinterpret_cast<float*>(ptr); ptr += (OK > 0 ? OK : 1) * GP * 4;
+  float* red = reinterpret_cast<float*>(ptr);  // red[2][NW][GP]: the warps' max and sum
+  float* srow = p.scores + bh * (long)p.srow_len * G;
+  // a tile's outlier rows sit at the same offset from every slot's start:
+  // n0 is a multiple of TILE, so the span's 16-byte lead is the block's own
+  const int ko_lead = p.kout ? (int)((uintptr_t)token_rows<PAGED>(p, p.kout, b, h, start, okb) & 15) : 0;
+
+  auto prefetch = [&](int st, int n0) {
+    if (n0 < end) {
+      const int nt = min(TILE, end - n0);
+      copy_rows(kbuf + st * TILE * p.rs, token_rows<PAGED>(p, p.kcodes, b, h, n0, M), nt, M, p.rs);
+      if (p.kout) copy_span(kobuf + st * kos, token_rows<PAGED>(p, p.kout, b, h, n0, okb), nt * okb);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < LANE_STAGES - 1; ++s) prefetch(s, start + s * TILE);
+  if (!GENERIC || p.cent_in_smem) {
+    if constexpr (GENERIC) {
+      for (int i = tid; i < Ck * d; i += THREADS) {
+        const int c = i / d, r = i - c * d, m = r / dmk;
+        kc[i] = __ldg(p.kcent + ((long)m * Ck + c) * dmk + r - m * dmk);
+      }
+    } else {
+      stage_lanes<W, U>(kc, p);
+    }
+  }
+  for (int i = tid; i < d * GP; i += THREADS) {
+    const int dim = i / GP, g = i % GP;
+    qt[i] = g < G ? p.q[(bh * G + g) * d + dim] : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < OK * GP; i += THREADS) qot[i] = qt[p.koidx[i / GP] * GP + i % GP];
+
+  // the lane's units: code byte, centroid offsets, query registers (rows in
+  // the lane's order: register c holds row c ^ lo)
+  float qr[UR][WR][GP], qo[GP];
+  const float* kbase[UR];  // unit k's entry of code row 0
+  int cbyte = 0;
+  if constexpr (!GENERIC) {
+    const int P = dmk / W;
+    cbyte = U == 2 ? 2 * lane : lane / P;
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int gu = lane * U + k, m = gu / P, t0 = (gu % P) * W;
+      kbase[k] = kc + (U == 2 ? 32 * k + lane : m) * dmk + t0;
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+#pragma unroll
+        for (int c = 0; c < GP; ++c) qr[k][w][c] = qt[(m + (t0 + w) * M) * GP + (c ^ lo)];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < GP; ++c) qo[c] = lane < OK ? qt[p.koidx[lane] * GP + (c ^ lo)] : 0.f;
+  const int gstride = p.cent_in_smem ? dmk : Ck * dmk;  // generic: subspace m's entries at m * gstride
+
+  float m_run = -INFINITY, l_run = 0.f;  // this lane's row lo
+  int st = 0;
+  for (int n0 = start; n0 < end; n0 += TILE) {
+    const int nt = min(TILE, end - n0);
+    cp_async_wait<LANE_STAGES - 2>();
+    __syncthreads();  // this tile is in; every thread is done with the stage refilled next
+    prefetch(st == 0 ? LANE_STAGES - 1 : st - 1, n0 + (LANE_STAGES - 1) * TILE);
+    const uint8_t* tile = kbuf + st * TILE * p.rs;
+    const __nv_bfloat16* kot = reinterpret_cast<const __nv_bfloat16*>(kobuf + st * kos + ko_lead);
+    for (int t0 = warp * NB; t0 < nt; t0 += NW * NB) {
+      // token rr ^ hi of the step for register slot rr (a token past the
+      // tile repeats its last one; its score is dropped)
+      int tok[NB];
+      float acc[NB][GP];
+#pragma unroll
+      for (int rr = 0; rr < NB; ++rr) {
+        tok[rr] = min(t0 + (rr ^ hi), nt - 1);
+#pragma unroll
+        for (int c = 0; c < GP; ++c) acc[rr][c] = 0.f;
+      }
+      if constexpr (GENERIC) {
+#pragma unroll
+        for (int rr = 0; rr < NB; ++rr) {
+          const uint8_t* row = tile + tok[rr] * p.rs;
+          for (int m = lane; m < M; m += 32) {
+            const float* cent = kc + row[m] * cstride + m * gstride;
+            for (int t = 0; t < dmk; ++t) {
+              const float v = cent[t];
+              const float* qd = qt + (m + t * M) * GP;
+#pragma unroll
+              for (int c = 0; c < GP; ++c) acc[rr][c] = fmaf(qd[c ^ lo], v, acc[rr][c]);
+            }
+          }
+        }
+      } else {
+        // the step's loads first (its code words, then their entries), so
+        // that their latencies overlap, then the FMAs
+        uint32_t cw[NB];
+#pragma unroll
+        for (int rr = 0; rr < NB; ++rr) {
+          const uint8_t* row = tile + tok[rr] * p.rs + cbyte;
+          cw[rr] = U == 2 ? *reinterpret_cast<const uint16_t*>(row) : *row;
+        }
+        float v[NB][U][W];
+#pragma unroll
+        for (int rr = 0; rr < NB; ++rr)
+#pragma unroll
+          for (int k = 0; k < U; ++k) {
+            const float* cent = kbase[k] + ((cw[rr] >> (8 * k)) & 0xFF) * (32 * U * W);
+            load_cent<W>(v[rr][k], cent);
+          }
+#pragma unroll
+        for (int rr = 0; rr < NB; ++rr)
+#pragma unroll
+          for (int k = 0; k < U; ++k)
+#pragma unroll
+            for (int w = 0; w < W; ++w)
+#pragma unroll
+              for (int c = 0; c < GP; ++c) acc[rr][c] = fmaf(qr[k][w][c], v[rr][k][w], acc[rr][c]);
+      }
+      if (p.kout) {
+        if (lane < OK) {
+          float kv[NB];
+#pragma unroll
+          for (int rr = 0; rr < NB; ++rr) kv[rr] = __bfloat162float(kot[tok[rr] * OK + lane]);
+#pragma unroll
+          for (int rr = 0; rr < NB; ++rr)
+#pragma unroll
+            for (int c = 0; c < GP; ++c) acc[rr][c] = fmaf(qo[c], kv[rr], acc[rr][c]);
+        }
+        for (int o = lane + 32; o < OK; o += 32)
+#pragma unroll
+          for (int rr = 0; rr < NB; ++rr) {
+            const float kv = __bfloat162float(kot[tok[rr] * OK + o]);
+#pragma unroll
+            for (int c = 0; c < GP; ++c) acc[rr][c] = fmaf(qot[o * GP + (c ^ lo)], kv, acc[rr][c]);
+          }
+      }
+      reduce_scatter<16>(acc);
+      const float s = acc[0][0];  // token t0 + hi, row lo
+      if (t0 + hi < nt && lo < G) {
+        srow[(long)(n0 + t0 + hi) * G + lo] = s;
+        if (s > m_run) {
+          l_run = l_run * expf(m_run - s) + 1.f;
+          m_run = s;
+        } else {
+          l_run += expf(s - m_run);
+        }
+      }
+    }
+    st = st + 1 == LANE_STAGES ? 0 : st + 1;
+  }
+  // the lanes of one row, then the warps, in a fixed order
+#pragma unroll
+  for (int o = GP; o < 32; o <<= 1)
+    ml_merge(m_run, l_run, __shfl_xor_sync(0xffffffffu, m_run, o), __shfl_xor_sync(0xffffffffu, l_run, o));
+  if (lane < GP) {
+    red[warp * GP + lane] = m_run;
+    red[(NW + warp) * GP + lane] = l_run;
+  }
+  __syncthreads();
+  if (tid < G) {
+    float m = -INFINITY, l = 0.f;
+    for (int w = 0; w < NW; ++w) ml_merge(m, l, red[w * GP + tid], red[(NW + w) * GP + tid]);
+    ml_out[2 * tid] = m;
+    ml_out[2 * tid + 1] = l;
+  }
+}
+
+template <int G, bool WIDE, bool PAGED>
+__global__ void __launch_bounds__(THREADS, 1) pq_score_kernel(Params p) {
+  if constexpr (WIDE) {
+    score_wide<G, PAGED>(p);
+  } else {
+    int W, U;
+    lane_mapping(p.d, p.dmk, W, U);
+    if (!p.cent_in_smem) W = U = 0;
+    if (W == 2) score_lanes<G, 2, 2, PAGED>(p);
+    else if (W == 4) score_lanes<G, 4, 1, PAGED>(p);
+    else score_lanes<G, 0, 0, PAGED>(p);
   }
 }
 
@@ -854,9 +1137,11 @@ static cudaError_t launch_passes(const Params& p, int bs, int optin, cudaStream_
   const int d = p.d;
   Params ps = p;
   ps.rs = code_row_stride(p.M);
-  const size_t need_s = 2 * TILE * (size_t)ps.rs + 2 * (size_t)outlier_slot(p.OK) +
+  // code and outlier tiles, query rows, the warps' maxima and sums
+  const int stages = p.kwide ? 2 : LANE_STAGES;
+  const size_t need_s = stages * (TILE * (size_t)ps.rs + (size_t)outlier_slot(p.OK)) +
                         (size_t)d * GP * 4 + (size_t)(p.OK > 0 ? p.OK : 1) * GP * 4 +
-                        up16(4 * (size_t)G * (THREADS / 32));
+                        up16(4 * (size_t)(p.kwide ? G : 2 * GP) * (THREADS / 32));
   if (need_s > (size_t)optin) return cudaErrorInvalidConfiguration;
   const size_t smem_s = with_cent(ps, need_s, sizeof(float) * (size_t)p.Ck * d, optin);
   cudaError_t e = launch_score<G, PAGED>(ps, bs, smem_s, st);

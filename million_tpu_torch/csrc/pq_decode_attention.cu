@@ -33,9 +33,12 @@
 // f32 codebook is C * d * 4 bytes (128 KB at C=256, d=128), and two of them
 // do not fit in the 227 KB of shared memory beside the code tiles. In each
 // pass the tiles of code rows (and outlier rows, and scores) are copied into
-// shared memory with cp.async, double-buffered, so the next tile's copy is in
-// flight while the current one is computed. All arithmetic is f32, so the
-// kernel differs from its plain PyTorch version only by summation order.
+// shared memory with cp.async, double-buffered (three buffers in the score
+// pass's lane build), so the next tile's copy is in flight while the current
+// one is computed. In the lane build (d_m <= 8) a warp's lanes split each
+// token's dims and keep their query dims in registers (pq_attention_passes.cuh
+// says how). All arithmetic is f32, so the kernel differs from its plain
+// PyTorch version only by summation order.
 //
 // Bound. Per call the kernel must read the codes and outlier slabs of
 // n_codes tokens: with M = M_v = 64 (dm2) or M = M_v = 32 plus 16 + 16 bf16
@@ -46,9 +49,9 @@
 // q-centroid table of 2 * C * d per query row and side, then M adds per token
 // (decode_row_ops); chip_smoke.py prints both bounds for its shapes. This
 // design is bound by neither: knock-out builds (benchmarks/paged_kernel_ab.py)
-// put ~55 % of its time in the score pass and ~35 % in the value pass, of
-// which the centroid gathers are a fifth and a twentieth; the rest is the
-// latency of one 512-thread block per SM working through its tiles.
+// at B4's serving shape put ~45 % of its time in the score pass (the lane
+// build's instruction issue and shared-memory pipe, ~20 cycles a token on
+// each SM at d = 128) and ~50 % in the value pass; the rest is the reduce.
 
 #include "pq_attention_passes.cuh"
 

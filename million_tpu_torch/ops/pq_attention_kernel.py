@@ -16,7 +16,8 @@ version for CPU tensors, launches the kernel for CUDA tensors, and raises
 otherwise; it counts kernel launches in `pq_codes_attention_stacked.launches`.
 `decode_route` decides which build of the passes computes a geometry (this
 kernel's and the paged kernel's): d_m <= 8 with M % 4 == 0, or any other
-subspace width and count.
+subspace width and count; `pq_codes_attention_stacked.score_launches` counts
+the score pass's launches by build ("lanes", "wide").
 """
 
 from __future__ import annotations
@@ -73,8 +74,10 @@ class DecodeRoute:
     """The builds of the decode passes (csrc/pq_attention_passes.cuh) that
     compute one geometry, shared by B1 / B2 and the paged B4-B6.
 
-    score: "narrow" (d_m <= 8 and M % 4 == 0: every main path) or "wide"
-      (any d_m and M: code rows read byte by byte where M % 4 != 0).
+    score: "lanes" (d_m <= 8 and M % 4 == 0: every main path; a warp's lanes
+      split each token's dims, their query dims in registers) or "wide" (any
+      d_m and M: two threads a token, code rows read byte by byte where
+      M % 4 != 0).
     value: "dm8" (one column per subspace, 8 registers a query row; d_m <= 8
       and M_v % 4 == 0) or "dm16" (a column is a slice of `slice_width` dims
       of a subspace, `slices` of them: 16 for G <= 3, else 8)."""
@@ -108,7 +111,7 @@ def decode_route(d: int, M: int, M_v: int, C_k: int, C_v: int, G: int, OK: int =
     if not 1 <= G <= MAX_GROUP or d % 4:
         raise ValueError(f"kernel needs 1 <= G <= {MAX_GROUP} and d % 4 == 0, got G={G}, d={d}")
     narrow = lambda m: d // m <= NARROW_MAX_DM and m % 4 == 0  # noqa: E731
-    score = "narrow" if narrow(M) else "wide"
+    score = "lanes" if narrow(M) else "wide"
     if narrow(M_v):
         value, width, slices = "dm8", NARROW_MAX_DM, 1
     else:
@@ -268,6 +271,7 @@ def _launch(q, key_codes, value_codes, key_cents, value_cents, layer, n_codes,
     )
     if err != 0:
         raise RuntimeError(f"pq_decode_attention launch failed: CUDA error {err}")
+    pq_codes_attention_stacked.score_launches[route.score] += 1
     return out, lse
 
 
@@ -318,6 +322,7 @@ def pq_codes_attention_stacked(
 
 
 pq_codes_attention_stacked.launches = 0
+pq_codes_attention_stacked.score_launches = {"lanes": 0, "wide": 0}
 
 
 def pq_codes_attention(

@@ -21,7 +21,8 @@ Both versions cut every sequence's tokens into the same splits and LSE-merge
 the per-split partials, so the plain version is the kernel's arithmetic in
 PyTorch. `pq_paged_attention_stacked` runs the plain version for CPU tensors,
 launches the kernel for CUDA tensors, and raises otherwise; it counts kernel
-launches in `pq_paged_attention_stacked.launches`.
+launches in `pq_paged_attention_stacked.launches`, and the score pass's by
+build ("lanes", "wide", as `decode_route` chooses) in its `score_launches`.
 """
 
 from __future__ import annotations
@@ -248,6 +249,7 @@ def _launch(q, key_pool, value_pool, key_cents, value_cents, layer, page_table, 
     )
     if err != 0:
         raise RuntimeError(f"pq_paged_attention launch failed: CUDA error {err}")
+    pq_paged_attention_stacked.score_launches[route.score] += 1
     return out, lse
 
 
@@ -305,6 +307,15 @@ def pq_paged_attention_stacked(
 
 
 pq_paged_attention_stacked.launches = 0
+pq_paged_attention_stacked.score_launches = {"lanes": 0, "wide": 0}
+
+
+def score_lane_share() -> Optional[float]:
+    """The share of this process's launches of pq_paged_attention_stacked
+    whose score pass took the lane build; None before the first launch."""
+    n = pq_paged_attention_stacked.score_launches
+    total = n["lanes"] + n["wide"]
+    return n["lanes"] / total if total else None
 
 
 def pq_paged_attention_stacked_mp(q, key_pool, value_pool, key_cents, value_cents, layer,

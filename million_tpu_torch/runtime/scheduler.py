@@ -49,7 +49,9 @@ scheduler.flush (slots, b7_launches), scheduler.dispatch (ticks, slots,
 b4_launches), scheduler.readback_wait (step: the id of the step span waited
 for); request events request.submit, request.seated (first token on the
 host), request.preempted, request.finished. The spans go around the calls
-into models/paged_decode.py, which keep their names here.
+into models/paged_decode.py, which keep their names here. stats() also reads
+B4's own count of its score pass's builds: `b4_lane_share`, the share that
+took the lane build (pq_paged_attention_kernel.score_lane_share).
 """
 
 from __future__ import annotations
@@ -605,8 +607,10 @@ class Scheduler:
         """The operator's read of a live scheduler: pool and slot state,
         queue depths, preemptions, the tracer's counters (`counters`: the
         process's since it started or since TRACER.reset(); see the module
-        docstring) and the card's memory (`device_memory`,
-        utils/profiling.device_memory_report; None off the card). Reads the
+        docstring), the card's memory (`device_memory`,
+        utils/profiling.device_memory_report; None off the card) and the
+        share of B4's launches whose score pass took the lane build
+        (`b4_lane_share`, the process's; None before any launch). Reads the
         bookkeeping arrays back (waits for the device)."""
         s = paged_cache_stats(self.state, self.pcfg)
         if s["page_table_errors"]:
@@ -625,7 +629,8 @@ class Scheduler:
         return s
 
     def _trace_stats(self) -> Dict:
-        return {"counters": dict(TRACER.counters), "device_memory": device_memory_report(self.device)}
+        return {"counters": dict(TRACER.counters), "device_memory": device_memory_report(self.device),
+                "b4_lane_share": pq_paged_attention_kernel.score_lane_share()}
 
     def run_to_completion(self, max_ticks: int = 100000) -> List[FinishedRequest]:
         ticks = 0

@@ -268,14 +268,14 @@ def test_decode_route_covers_the_target_set():
             M = d // dm
             route = K.decode_route(d, M, M, C, C, G, O, O)
             seen.add(route.name)
-            assert route.score == ("narrow" if dm <= 8 else "wide")
+            assert route.score == ("lanes" if dm <= 8 else "wide")
             assert route.value == ("dm8" if dm <= 8 else "dm16")
             if dm > 8:
                 assert route.slice_width == (16 if G <= 3 else 8)
                 assert route.slices * route.slice_width == dm
-    assert "score[narrow]+value[dm8x1]" in seen and "score[wide]+value[dm16x1]" in seen
+    assert "score[lanes]+value[dm8x1]" in seen and "score[wide]+value[dm16x1]" in seen
     # asymmetric sides: K at d_m 2, V at d_m 16
-    assert K.decode_route(128, 64, 8, 256, 128, 3).name == "score[narrow]+value[dm16x1]"
+    assert K.decode_route(128, 64, 8, 256, 128, 3).name == "score[lanes]+value[dm16x1]"
     for bad in (dict(C_k=512), dict(G=9), dict(M=3)):
         kw = dict(d=128, M=8, M_v=8, C_k=256, C_v=256, G=3)
         kw.update(bad)

@@ -328,3 +328,32 @@ def test_cuda_kernel_odd_exact_channels(rng, cuda_device, O, N, n_codes):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,M,C,O", [(4, 64, 256, 0), (7, 32, 128, 16), (3, 16, 256, 0)])
+def test_cuda_lane_build_matches_plain_and_repeats(rng, cuda_device, G, M, C, O):
+    """B1 through the score pass's lane build at d = 128 (dm2 at G = 4,
+    dm4_outlier_c128 at G = 7, d_m 8 at G = 3), with the residual window:
+    an empty arena and 1,217 codes, `out` and `lse` at 1e-5 of the plain
+    version, a second launch on the same inputs bit-identical."""
+    c = make_case(rng, G=G, d=128, M=M, C=C, O=O, N=1300)
+    bs, nh, d = c["q"].shape
+    qg = _t((c["q"] / np.sqrt(d)).astype(np.float32)).reshape(bs, 2, G, d)
+    res = torch.randn((2, bs, 2, 16, d), generator=torch.Generator().manual_seed(3)).bfloat16()
+    kw = dict(k_residual=res, v_residual=res * 2, r=7)
+    if O:
+        kw.update(k_outliers=_t(c["ko"]).bfloat16(), v_outliers=_t(c["vo"]).bfloat16(),
+                  k_oidx=_t(c["koidx"]), v_oidx=_t(c["voidx"]))
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n_codes in (0, 1217):
+        args = [qg, _t(c["kc"]), _t(c["vc"]), _t(c["kcent"]), _t(c["vcent"]), 1, n_codes]
+        want = K.pq_codes_attention_plain(*args, **kw, n_sm=n_sm)
+        before = K.pq_codes_attention_stacked.score_launches["lanes"]
+        runs = [[g.cpu().numpy() for g in K.pq_codes_attention_stacked(
+            *[a.to(cuda_device) if torch.is_tensor(a) else a for a in args],
+            **{k: v.to(cuda_device) if torch.is_tensor(v) else v for k, v in kw.items()})] for _ in range(2)]
+        assert K.pq_codes_attention_stacked.score_launches["lanes"] == before + 2
+        for g, a, w in zip(*runs, want):
+            np.testing.assert_allclose(g, w.numpy(), atol=1e-5)
+            assert np.array_equal(g.view(np.uint32), a.view(np.uint32))

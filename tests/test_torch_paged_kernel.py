@@ -12,6 +12,8 @@ with (dequantize_table). Ragged lengths, shuffled tables, -1 tails, a slot
 with no codes and M_v != M are covered. Tests marked `cuda` hold the CUDA
 kernel against the plain version on the card and skip without one."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -254,6 +256,37 @@ def test_wrapper_rejects_what_it_cannot_take(rng):
         P.pq_paged_attention_stacked(*args, 0, table, n_codes, k_outliers=args[1])
 
 
+@pytest.mark.parametrize("d,M,G,O,build", [
+    (128, 64, 4, 0, "lanes"), (128, 32, 7, 16, "lanes"), (128, 16, 3, 0, "lanes"), (64, 8, 8, 0, "lanes"),
+    (16, 4, 2, 4, "lanes"), (96, 48, 4, 0, "lanes"), (128, 8, 3, 0, "wide"), (24, 6, 2, 0, "wide")])
+def test_score_launches_follow_the_route(rng, monkeypatch, d, M, G, O, build):
+    """Both wrappers count their score pass's launches by the build that
+    decode_route chooses: the lane build for every d_m <= 8 with M % 4 == 0,
+    the wide one otherwise. The library's call is stubbed (no card), the
+    route and the arguments' checks run; score_lane_share reads None before
+    the first launch."""
+    stub = SimpleNamespace(pq_paged_attention=lambda *a: 0, pq_decode_attention=lambda *a: 0)
+    for mod in (P, K):
+        monkeypatch.setattr(mod, "_library", lambda: stub)
+        monkeypatch.setattr(mod, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+    for fn in (P.pq_paged_attention_stacked, K.pq_codes_attention_stacked):
+        monkeypatch.setattr(fn, "score_launches", {"lanes": 0, "wide": 0})
+    assert P.score_lane_share() is None
+    assert K.decode_route(d, M, M, 16, 16, G, O, O).score == build
+    c = make_case(rng, S=2, nh_k=1, G=G, d=d, M=M, C=16, O=O, ps=256, pps=1, n_pages=2, L=1, lens=(200, 0),
+                  rows=(0, 0))
+    args, table, n_codes, kw = port_args(c, residual=False)
+    ko = [kw.get(k) for k in ("k_outliers", "v_outliers", "k_oidx", "v_oidx")]
+    P._launch(*args, 0, table, n_codes, None, *ko, None, None, None, None, None)
+    K._launch(args[0], args[1][:, :2], args[2][:, :2], args[3], args[4], 0, 200,
+              *[None if x is None else x[:, :2] if x.dim() == 5 else x for x in ko], None, None, 0, None)
+    want = {"lanes": int(build == "lanes"), "wide": int(build == "wide")}
+    assert P.pq_paged_attention_stacked.score_launches == K.pq_codes_attention_stacked.score_launches == want
+    assert P.score_lane_share() == float(build == "lanes")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -318,6 +351,32 @@ def test_cuda_kernel_odd_exact_channels(rng, cuda_device, O):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w.numpy(), atol=1e-5)
     assert (got[0][-1] == 0).all() and (got[1][-1] == -1e30).all()
+
+
+LANE_GEOMETRIES = {  # the score pass's lane build at the paths' width, d = 128
+    "dm2_G4": dict(G=4, d=128, M=64, C=256),  # the cell mistral-7b.decode-32k's
+    "dm4_outlier_c128_G7": dict(G=7, d=128, M=32, C=128, O=16),  # qwen2-7b's
+    "dm8_G3": dict(G=3, d=128, M=16, C=256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", sorted(LANE_GEOMETRIES))
+def test_cuda_lane_build_matches_plain_and_repeats(rng, cuda_device, geom):
+    """The lane build on ragged lengths with an empty slot, shortened from
+    the paths' 32K: `out` and `lse` at 1e-5 of the plain version, a second
+    launch on the same inputs bit-identical (the greedy resume needs it)."""
+    c = make_case(rng, S=4, ps=256, pps=9, n_pages=40, lens=(2200, 517, 0, 256), rows=(8, 1, 0, 3),
+                  **LANE_GEOMETRIES[geom])
+    want = port_call(c, 1, fn=P.pq_paged_attention_plain,
+                     n_sm=torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    before = P.pq_paged_attention_stacked.score_launches["lanes"]
+    got, again = _on_card(c, cuda_device, 1), _on_card(c, cuda_device, 1)
+    assert P.pq_paged_attention_stacked.score_launches["lanes"] == before + 2
+    for g, a, w in zip(got, again, want):
+        np.testing.assert_allclose(g, w.numpy(), atol=1e-5)
+        assert np.array_equal(g.view(np.uint32), a.view(np.uint32))
+    assert (got[0][2] == 0).all() and (got[1][2] == -1e30).all()
 
 
 def test_knockouts_of_the_passes_apply(tmp_path):

@@ -5,7 +5,8 @@ recorded unless enabled or under torch.profiler, spans and request events
 show in the profiler's Chrome trace, one scheduler run covers
 every span and request event with counters that agree with the scheduler's
 own, and the tokens do not depend on recording. The `cuda` case runs the
-same scheduler on the card (B7 launches per flush, device time per step).
+same scheduler on the card (B7 launches per flush, device time per step,
+every B4 score pass in the lane build).
 This file imports no JAX: on the card it runs as
 `python3 -m pytest tests/test_torch_trace.py -m cuda`."""
 
@@ -219,6 +220,15 @@ def test_stats_report_the_counters_and_the_cards_memory(tracer):
         assert device_memory_report() is None
 
 
+def test_stats_report_no_lane_share_without_a_b4_launch(tracer):
+    """A scheduler on the CPU launches no kernel, so the share of B4's score
+    passes that took the lane build reads None (not 0)."""
+    sched = submitted()
+    for _ in range(3):
+        sched.step()
+    assert sched.stats()["b4_lane_share"] is None
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -246,6 +256,7 @@ def test_scheduler_trace_on_the_card(tracer, cuda_device):
                for s in tracer.named("scheduler.dispatch"))
     assert len(timed) == len(tracer.named("scheduler.dispatch"))
     assert sched.stats()["device_memory"]["peak_bytes_in_use"] > 0
+    assert sched.stats()["b4_lane_share"] == 1.0  # d_m 4, M 4: the lane build
     tracer.reset()
     paused = submitted(cuda_device)
     for _ in range(6):
