@@ -1,6 +1,8 @@
 """One run of one cell: set-up, the measured window, the traced segment,
 the follow-up of the window's requests, and the check against the plain
-reference. Whatever differs between cells comes from the cell's files.
+reference. Whatever differs between cells comes from the cell's files: the
+weights, the reference and the port's configuration from its
+architecture's (manifest.load_architecture).
 
 Phases, each a list of scheduler steps (system.Probe.step):
   setup   closed mix: every request submitted and admitted, then
@@ -24,6 +26,7 @@ import gc
 import os
 import sys
 import time
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -31,7 +34,6 @@ import torch
 
 from perfbench import inputs, system, traffic
 from perfbench.manifest import Cell
-from perfbench.reference.model import Reference
 
 
 def log(*a) -> None:
@@ -79,6 +81,7 @@ class Req:
 class RunRecord:
     """What the metric readers read (metrics/<name>.py: read(run))."""
     config: dict  # the configuration file: the published keys at its top, "pq", "paging"
+    plain: ModuleType  # the architecture's reference/<architecture>.py: pq_layers, token_flops, prompt_flops
     setup_s: float
     t0: float  # window start (host clock)
     t1: float  # window end: the end of its last step
@@ -106,11 +109,11 @@ class Run:
         if self.device.type == "cuda":
             system.build_kernels()
             torch.cuda.reset_peak_memory_stats()
-        self.weights = inputs.make_weights(self.config, s_w, self.device)
-        self.tables = inputs.make_codebooks(self.config, s_t, self.device)
+        self.weights = cell.plain.make_weights(self.config, s_w, self.device)
+        self.tables = inputs.make_codebooks(self.config, cell.plain.pq_layers(self.config), s_t, self.device)
         horizon = seconds + float(self.mix.get("trace_seconds", 0)) + float(self.mix.get("follow_seconds", 0))
         self.specs = traffic.generate(self.mix, s_r, self.config["vocab_size"], horizon, rate=rate)
-        self.sched = system.make_scheduler(self.config, self.mix, self.weights, self.tables,
+        self.sched = system.make_scheduler(cell.program, self.config, self.mix, self.weights, self.tables,
                                            self.device, inputs.torch_seed(s_sched))
         self.probe = system.Probe(self.sched)
         self.steps: List[Step] = []
@@ -330,6 +333,7 @@ def check(run: Run, sample: List[Req], chunks: Dict, logits: Dict, fp8: bool, co
     `logit_err_vs_fp8` reads 1), and the program's own numbers are returned
     under "program"."""
     Lt = run.config["paging"]["Lt"]
+    Reference = run.cell.plain.Reference
     ref = Reference(run.weights, run.config, run.tables)
     low = Reference(run.weights, run.config, run.tables, precision="fp8") if fp8 or control else None
     prog, ctl = _Tally(), _Tally()

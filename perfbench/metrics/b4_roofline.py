@@ -1,6 +1,7 @@
 """B4, the paged PQ decode attention: its least time at the traced
-segment's shapes (roofline.paged_call for each live slot, every layer of
-every tick; operations at the f32 rate) over its traced time (%)."""
+segment's shapes (roofline.paged_call for each live slot, every PQ layer
+of the architecture in every tick; operations at the f32 rate) over its
+traced time (%)."""
 
 from perfbench import roofline
 
@@ -13,11 +14,12 @@ def read(run):
     spent, _ = run.trace.kernel_s(KERNELS)
     m, pq = run.config, run.config["pq"]
     G = m["num_attention_heads"] // m["num_key_value_heads"]
+    layers = len(run.plain.pq_layers(m))
     bound = 0.0
     for s in run.phase_steps("trace"):
         for t in s.calls.ticks:
             nbytes, ops = roofline.paged_call(t.codes, t.rows, nh_k=m["num_key_value_heads"], G=G,
                                               d=m["head_dim"], M=m["head_dim"] // pq["d_m"], C=pq["C"],
                                               O=pq["outliers"])
-            bound += m["num_hidden_layers"] * roofline.bound_s(nbytes, ops, roofline.F32_OPS_PER_S)
+            bound += layers * roofline.bound_s(nbytes, ops, roofline.F32_OPS_PER_S)
     return 100.0 * bound / spent if spent > 0 and bound > 0 else None

@@ -1,5 +1,5 @@
-"""The dense model's operations for the tokens the window's steps processed,
-over the window, over the bf16 peak (%)."""
+"""The model's operations (its architecture's counts) for the tokens the
+window's steps processed, over the window, over the bf16 peak (%)."""
 
 from perfbench.readers import mfu_pct
 

@@ -1,5 +1,5 @@
 """Helpers the metric readers share: percentiles, the steps of a phase,
-and the dense model's operations over steps."""
+and the model's operations over steps, counted by the cell's architecture."""
 
 from __future__ import annotations
 
@@ -20,15 +20,17 @@ def ticks(steps) -> int:
     return sum(len(s.calls.ticks) for s in steps)
 
 
-def step_flops(m: dict, steps) -> int:
-    """Dense-model operations of the decode tokens and admitted prompts of
-    these steps (roofline.decode_flops / prompt_flops)."""
+def step_flops(plain, m: dict, steps) -> int:
+    """The model's operations (the architecture's counts, `plain` its
+    reference module) for the decode tokens and admitted prompts of these
+    steps: a decode token at position p attends p + 1 keys and its logits are
+    computed; a prompt is prompt_flops."""
     total = 0
     for s in steps:
         for t in s.calls.ticks:
-            total += roofline.decode_flops(m, t.positions)
+            total += sum(plain.token_flops(m, int(p) + 1, True) for p in t.positions)
         for a in s.calls.admissions:
-            total += sum(roofline.prompt_flops(m, n) for n in a.lens)
+            total += sum(plain.prompt_flops(m, n) for n in a.lens)
     return total
 
 
@@ -36,7 +38,7 @@ def mfu_pct(run) -> Optional[float]:
     steps = run.phase_steps("window")
     if not steps:
         return None
-    return 100.0 * step_flops(run.config, steps) / (run.t1 - run.t0) / roofline.BF16_OPS_PER_S
+    return 100.0 * step_flops(run.plain, run.config, steps) / (run.t1 - run.t0) / roofline.BF16_OPS_PER_S
 
 
 def step_ms_per_tick(steps: List) -> Optional[float]:

@@ -1,5 +1,7 @@
-"""A llama-class decoder (GQA, RoPE, RMSNorm, SwiGLU, optional q/k/v biases)
-served from a product-quantized KV cache, in plain PyTorch and float32.
+"""The llama-class decoder (GQA, RoPE, RMSNorm, SwiGLU, optional q/k/v
+biases) served from a product-quantized KV cache in every layer: the plain
+side of the architecture "llama", in plain PyTorch, importing nothing of the
+program.
 
 What the served path computes, written out: a query at position t attends
 keys and values reconstructed from their PQ codes (nearest centroid in each
@@ -9,110 +11,85 @@ b(t) to t. For a prompt admitted in chunks of c tokens b(t) = c * floor(t /
 c) (one-shot: 0); for a decoded token b(t) = n4 + Lt * floor((t - n4) / Lt),
 n4 the prompt length rounded down to a multiple of 4 and Lt the residual
 window, since a full window is encoded before the next token. The codes are
-worked out here from the reference's own keys and values.
+worked out here from the reference's own keys and values. Products follow
+common.matmul (exact f32, or the fp8 control).
 
-Products with the weights, which are bf16 values, are exact f32 products:
-on the card the f32 activation is split into three bf16 parts, exactly, and
-each part is multiplied by the bf16 weight with f32 accumulation (TF32 off).
-`precision="fp8"` is the control: every weight product takes e4m3 inputs
-(per-row activation and per-column weight scales), as an fp8 serving path
-would.
+Weights follow the published widths of the configuration, in the layout the
+port's model takes (a dict; per-layer weights stacked on a leading layer
+axis, attention projections stored (out, in), MLP weights (in, out)): normal
+with std sqrt(2 / (fan_in + fan_out)) over the last two axes, norms at 1,
+drawn in the served type in one call per stacked tensor.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-ROW_BLOCK = 8192  # rows of the MLP and of the encode at a time
-FP8_MAX = 448.0
+from perfbench.inputs import DTYPES, torch_seed
+from perfbench.reference.common import (ROW_BLOCK, attention_blocks, matmul, pq_roundtrip, rms_norm, rope,
+                                        rope_cos_sin)
 
 
-def _split3(x: torch.Tensor):
-    hi = x.to(torch.bfloat16)
-    r = x - hi.float()
-    mid = r.to(torch.bfloat16)
-    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+def make_weights(m: dict, ss: np.random.SeedSequence, device: torch.device) -> Dict:
+    gen = torch.Generator(device=device).manual_seed(torch_seed(ss))
+    dt = DTYPES[m["torch_dtype"]]
+    L, D, I, V = m["num_hidden_layers"], m["hidden_size"], m["intermediate_size"], m["vocab_size"]
+    nh, nk, dh = m["num_attention_heads"], m["num_key_value_heads"], m["head_dim"]
+
+    def w(*shape):
+        std = (2.0 / (shape[-2] + shape[-1])) ** 0.5
+        return torch.randn(shape, generator=gen, device=device, dtype=dt).mul_(std)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dt)
+
+    params = {
+        "embed": w(V, D),
+        "final_norm": ones(D),
+        "layers": {
+            "attn_norm": ones(L, D), "mlp_norm": ones(L, D),
+            "wq": w(L, nh * dh, D), "wk": w(L, nk * dh, D), "wv": w(L, nk * dh, D),
+            "wo": w(L, D, nh * dh),
+            "w_gate": w(L, D, I), "w_up": w(L, D, I), "w_down": w(L, I, D),
+        },
+    }
+    if m.get("attention_bias"):
+        params["layers"].update(bq=w(L, nh * dh), bk=w(L, nk * dh), bv=w(L, nk * dh))
+    if not m["tie_word_embeddings"]:
+        params["lm_head"] = w(D, V)
+    return params
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, precision: str = "f32") -> torch.Tensor:
-    """x (R, K) f32 @ w (K, N) -> (R, N) f32."""
-    if precision == "fp8":
-        sx = x.abs().amax(dim=1, keepdim=True).clamp(min=1e-30) / FP8_MAX
-        wf = w.float()
-        sw = wf.abs().amax(dim=0, keepdim=True).clamp(min=1e-30) / FP8_MAX
-        xq = (x / sx).to(torch.float8_e4m3fn)
-        wq = (wf / sw).to(torch.float8_e4m3fn)
-        if x.is_cuda:  # e4m3 values are exact in bf16; the products accumulate in f32
-            y = torch.mm(xq.to(torch.bfloat16), wq.to(torch.bfloat16), out_dtype=torch.float32)
-        else:
-            y = xq.float() @ wq.float()
-        return y * sx * sw
-    if precision != "f32":
-        raise ValueError(f"unknown precision {precision!r}")
-    if x.is_cuda and w.dtype == torch.bfloat16:
-        return sum(torch.mm(p, w, out_dtype=torch.float32) for p in _split3(x))
-    return x @ w.float()
+def pq_layers(m: dict) -> List[int]:
+    """The layers whose keys and values live in the PQ pool: every layer."""
+    return list(range(m["num_hidden_layers"]))
 
 
-def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
-    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * g.float()
+def matmul_params(m: dict) -> int:
+    """Weights a token multiplies through in the transformer body (the head
+    apart): q, k, v, o and the three MLP projections of every layer."""
+    D, I, L = m["hidden_size"], m["intermediate_size"], m["num_hidden_layers"]
+    nh, nk, dh = m["num_attention_heads"], m["num_key_value_heads"], m["head_dim"]
+    return L * (D * (nh + 2 * nk) * dh + nh * dh * D + 3 * D * I)
 
 
-def rope_cos_sin(theta: float, d: int, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """HF's rotary tables in f32: (n, d/2) cos and sin of position x inverse
-    frequency."""
-    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.int64, device=device).float() / d))
-    ang = torch.arange(n, device=device).float()[:, None] * inv[None, :]
-    return ang.cos(), ang.sin()
+def token_flops(m: dict, context: int, head: bool) -> int:
+    """Dense-model operations of one token that attends `context` keys: 2 x
+    the matmul weights it touches (the head when its logits are computed),
+    plus 4 x layers x heads x head_dim x context for the scores and P @ V."""
+    w = matmul_params(m) + (m["hidden_size"] * m["vocab_size"] if head else 0)
+    return 2 * w + 4 * m["num_hidden_layers"] * m["num_attention_heads"] * m["head_dim"] * context
 
 
-def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Half-split rotation of x (n, heads, d)."""
-    x1, x2 = x.chunk(2, dim=-1)
-    c, s = cos[:, None, :], sin[:, None, :]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-
-
-def pq_roundtrip(x: torch.Tensor, cents: torch.Tensor, oidx: Optional[torch.Tensor]) -> torch.Tensor:
-    """x (..., d) f32 -> its reconstruction from the nearest centroid of each
-    subspace (cents (M, C, d_m), strided subspaces), outlier channels exact."""
-    M, C, dm = cents.shape
-    d = x.shape[-1]
-    flat = x.reshape(-1, d)
-    out = torch.empty_like(flat)
-    c = cents.float()
-    c_sq = (c * c).sum(-1)  # (M, C)
-    ar = torch.arange(M, device=x.device)[None, :]
-    for s in range(0, flat.shape[0], ROW_BLOCK):
-        xs = flat[s:s + ROW_BLOCK].reshape(-1, dm, M).transpose(1, 2)  # (r, M, dm)
-        dist = torch.baddbmm(c_sq[:, None, :], xs.transpose(0, 1), c.transpose(1, 2), alpha=-2.0)
-        codes = dist.argmin(-1).t()  # (r, M)
-        out[s:s + ROW_BLOCK] = c[ar, codes].transpose(1, 2).reshape(-1, d)
-    if oidx is not None:
-        i = oidx.long()
-        out[:, i] = flat[:, i]
-    return out.reshape(x.shape)
-
-
-def attention_blocks(n: int, N: int, chunk: Optional[int], Lt: int) -> List[Tuple[int, int, int]]:
-    """(first query, end, b): query blocks [first, end) whose keys before b
-    are quantized and from b on exact (causal)."""
-    if chunk is None:
-        blocks = [(0, n, 0)]
-    else:
-        blocks = [(s, min(s + chunk, n), s) for s in range(0, n, chunk)]
-    n4 = n - n % 4
-    t = n
-    while t < N:
-        b = n4 + Lt * ((t - n4) // Lt)
-        end = min(b + Lt, N)
-        blocks.append((t, end, b))
-        t = end
-    return blocks
+def prompt_flops(m: dict, n: int) -> int:
+    """token_flops summed over an n-token prompt admitted at once: token p
+    attends p + 1 keys, and only the last token's logits are computed."""
+    attn = 4 * m["num_hidden_layers"] * m["num_attention_heads"] * m["head_dim"]
+    return 2 * matmul_params(m) * n + attn * n * (n + 1) // 2 + 2 * m["hidden_size"] * m["vocab_size"]
 
 
 class Reference:

@@ -1,5 +1,6 @@
-"""The yardstick's arithmetic: the card's published peaks, the least time a
-kernel call can take at its shapes, and the dense model's operations.
+"""The yardstick's arithmetic: the card's published peaks and the least time
+a kernel call can take at its shapes. The model's own operations are its
+architecture's (reference/<architecture>.py: token_flops, prompt_flops).
 
 The byte and operation counts are those the port's own kernel notes state
 (ops/pq_paged_attention_kernel.py::paged_bytes / paged_flops,
@@ -10,7 +11,7 @@ yardstick. Each input byte is counted once and each output byte once.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence
+from typing import Optional, Sequence
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense tensor-core bf16 and
 # f32 outside the tensor cores
@@ -68,32 +69,3 @@ def chunk_call(bs: int, QR: int, n_codes: int, *, nh_k: int, d: int, M: int, O: 
     nbytes = bs * nh_k * (QR * (2 * d + 1) * 4 + n_codes * (2 * M + 2 * 2 * O))
     ops = 2 * bs * nh_k * QR * n_codes * (2 * d + O)
     return nbytes, ops
-
-
-def matmul_params(m: dict) -> int:
-    """Weights a token multiplies through in the transformer body (the head
-    apart): q, k, v, o and the three MLP projections of every layer."""
-    D, I, L = m["hidden_size"], m["intermediate_size"], m["num_hidden_layers"]
-    nh, nk, dh = m["num_attention_heads"], m["num_key_value_heads"], m["head_dim"]
-    return L * (D * (nh + 2 * nk) * dh + nh * dh * D + 3 * D * I)
-
-
-def token_flops(m: dict, context: int, head: bool) -> int:
-    """Dense-model operations of one token that attends `context` keys: 2 x
-    the matmul weights it touches (the head when its logits are computed),
-    plus 4 x layers x heads x head_dim x context for the scores and P @ V."""
-    w = matmul_params(m) + (m["hidden_size"] * m["vocab_size"] if head else 0)
-    return 2 * w + 4 * m["num_hidden_layers"] * m["num_attention_heads"] * m["head_dim"] * context
-
-
-def prompt_flops(m: dict, n: int) -> int:
-    """token_flops summed over an n-token prompt admitted at once: token p
-    attends p + 1 keys, and only the last token's logits are computed."""
-    attn = 4 * m["num_hidden_layers"] * m["num_attention_heads"] * m["head_dim"]
-    return 2 * matmul_params(m) * n + attn * n * (n + 1) // 2 + 2 * m["hidden_size"] * m["vocab_size"]
-
-
-def decode_flops(m: dict, positions: Iterable[int]) -> int:
-    """token_flops over decode tokens at these positions (each attends its
-    position + 1 keys, and its logits are computed)."""
-    return sum(token_flops(m, int(p) + 1, True) for p in positions)

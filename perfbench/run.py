@@ -64,7 +64,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
         driver.log(f"generator: {len(late)} requests due in the window, late by p50 "
                    f"{float(np.median(late)):.4f} s, max {max(late):.4f} s")
     peak = torch.cuda.max_memory_allocated() if run.device.type == "cuda" else 0
-    record = driver.RunRecord(cell.config, out["setup_s"], out["t0"], out["t1"], run.steps,
+    record = driver.RunRecord(cell.config, cell.plain, out["setup_s"], out["t0"], out["t1"], run.steps,
                               run.reqs, out["tokens"], peak, out["trace"])
     chunks = run.chunks_by_rid()
     logits = run.probe.sampled_logits()

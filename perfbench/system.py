@@ -1,7 +1,9 @@
 """The system under test: million_tpu_torch's serving path, built from a
-configuration and a mix, and a probe on the scheduler's calls.
+configuration (through its architecture's programs/<architecture>.py) and a
+mix, and a probe on the scheduler's calls.
 
-This is the one file of the benchmark that imports the port. The probe
+Beside programs/*.py this is the one file of the benchmark that imports the
+port, and it names no model. The probe
 replaces, while a run lasts, the names the scheduler module calls
 (paged_decode_step, flush_paged_slots, paged_admit_chunked[_batch],
 paged_prefill_seq) by wrappers that call them unchanged and record what
@@ -27,13 +29,9 @@ from typing import List, Optional
 
 import torch
 
-from million_tpu_torch.cache.paged_pq_cache import PagedPQCacheConfig
-from million_tpu_torch.models.llama import ModelConfig
 from million_tpu_torch.runtime import scheduler as sched_mod
 from million_tpu_torch.runtime.sampling import SamplingConfig
 from million_tpu_torch.runtime.scheduler import Request, Scheduler  # noqa: F401 (Request: the driver's)
-
-from perfbench.inputs import DTYPES
 
 LIBRARIES = ("pq_paged_attention", "pq_chunk_attention", "pq_encode", "causal_attention")
 
@@ -49,31 +47,11 @@ def build_kernels() -> None:
         list(pool.map(build, LIBRARIES))
 
 
-def model_config(m: dict) -> ModelConfig:
-    if m.get("rope_scaling"):
-        raise ValueError("rope scaling is not read by this harness yet")
-    return ModelConfig(
-        vocab_size=m["vocab_size"], hidden_size=m["hidden_size"],
-        intermediate_size=m["intermediate_size"], num_layers=m["num_hidden_layers"],
-        num_heads=m["num_attention_heads"], num_kv_heads=m["num_key_value_heads"],
-        head_dim=m["head_dim"], rope_theta=float(m["rope_theta"]), rms_eps=float(m["rms_norm_eps"]),
-        tie_word_embeddings=bool(m["tie_word_embeddings"]), attn_bias=bool(m.get("attention_bias")),
-        dtype=DTYPES[m["torch_dtype"]])
-
-
-def cache_config(m: dict, mix: dict) -> PagedPQCacheConfig:
-    d, pq, paging = m["head_dim"], m["pq"], m["paging"]
-    slots, pps = mix["slots"], mix["pages_per_slot"]
-    return PagedPQCacheConfig(
-        num_layers=m["num_hidden_layers"], nh_k=m["num_key_value_heads"], d=d, M=d // pq["d_m"],
-        C=pq["C"], Lt=paging["Lt"], page_size=paging["page_size"],
-        n_pages=slots * pps, max_seqs=slots, pages_per_seq=pps,
-        dtype=DTYPES[m["torch_dtype"]], OK=pq["outliers"], OV=pq["outliers"])
-
-
-def make_scheduler(config: dict, mix: dict, params, tables, device, seed: int) -> Scheduler:
+def make_scheduler(program, config: dict, mix: dict, params, tables, device, seed: int) -> Scheduler:
+    """The port's Scheduler of this configuration and mix; `program` is the
+    architecture's programs/<architecture>.py (model_config, cache_config)."""
     paging = config["paging"]
-    return Scheduler(params, model_config(config), cache_config(config, mix), tables,
+    return Scheduler(params, program.model_config(config), program.cache_config(config, mix), tables,
                      SamplingConfig(), seed=seed, admit_chunk=paging["admit_chunk"],
                      admit_batch=paging["admit_batch"], tick_chain=paging["tick_chain"],
                      device=device)

@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from perfbench.manifest import load_cell
-from perfbench.reference import model as ref_model
 from perfbench.run import run_cell
 from perfbench.tests import tiny
 from perfbench.tests.faults import FAULTS
@@ -79,9 +78,9 @@ def test_reference_attends_what_the_program_quantized(tmp_path, monkeypatch, cel
     logit the reference's to f32 rounding (the exact channels, which the
     program stores in bf16, aside): the reference attends quantized exactly
     the tokens the program did, chunk by chunk and window by window."""
-    monkeypatch.setattr(ref_model, "pq_roundtrip", _fast_roundtrip)
-    root = tiny.write_root(tmp_path, dtype="float32")
-    res = run_cell(load_cell(cell, root), 2**31 + 3, 1.0, False, device="cpu")
+    c = load_cell(cell, tiny.write_root(tmp_path, dtype="float32"))
+    monkeypatch.setattr(c.plain, "pq_roundtrip", _fast_roundtrip)
+    res = run_cell(c, 2**31 + 3, 1.0, False, device="cpu")
     tol = 2e-2 if "outlier" in cell else 1e-4
     assert res["check"]["logit_err_max"]["value"] < tol, res["check"]
     if "outlier" not in cell:

@@ -67,6 +67,9 @@ def test_configs():
         body = json.loads((ROOT / c["file"]).read_text())
         assert body["source"] == c["source"] and body["reduced"] == c["reduced"] == []
         assert body["head_dim"] * body["num_attention_heads"] == body["hidden_size"]
+        # its architecture's two sides, found by name
+        for kind in ("reference", "programs"):
+            assert (manifest.PACKAGE / kind / f"{body['architecture']}.py").exists(), (c["name"], kind)
         assert len(c["reduced"]) <= 16 and all(NAME.match(k) for k in c["reduced"])
 
 

@@ -1,8 +1,14 @@
-"""The yardstick's counts against hand counts at small shapes."""
+"""The yardstick's counts against hand counts at small shapes: the kernels'
+(roofline.py) and the llama architecture's (reference/llama.py), and the
+readers' sum of the architecture's counts over steps."""
 
 from __future__ import annotations
 
+import types
+
+from perfbench import readers
 from perfbench import roofline as R
+from perfbench.reference import llama
 
 TINY = {"hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 2, "num_attention_heads": 2,
         "num_key_value_heads": 1, "head_dim": 2, "vocab_size": 10}
@@ -46,10 +52,14 @@ def test_chunk_call():
 
 
 def test_model_flops():
-    assert R.matmul_params(TINY) == 2 * (4 * 4 * 2 + 2 * 2 * 4 + 3 * 4 * 8) == 288
+    assert llama.matmul_params(TINY) == 2 * (4 * 4 * 2 + 2 * 2 * 4 + 3 * 4 * 8) == 288
     attn = 4 * 2 * 2 * 2
-    assert R.token_flops(TINY, 3, head=True) == 2 * (288 + 40) + attn * 3
-    assert R.token_flops(TINY, 3, head=False) == 2 * 288 + attn * 3
+    assert llama.token_flops(TINY, 3, head=True) == 2 * (288 + 40) + attn * 3
+    assert llama.token_flops(TINY, 3, head=False) == 2 * 288 + attn * 3
     # a prompt is its tokens without the head, plus the head once
-    assert R.prompt_flops(TINY, 3) == sum(R.token_flops(TINY, p + 1, False) for p in range(3)) + 2 * 40
-    assert R.decode_flops(TINY, [0, 2]) == R.token_flops(TINY, 1, True) + R.token_flops(TINY, 3, True)
+    assert llama.prompt_flops(TINY, 3) == sum(llama.token_flops(TINY, p + 1, False) for p in range(3)) + 2 * 40
+    # decode tokens at positions 0 and 2 attend 1 and 3 keys, with the head
+    ns = types.SimpleNamespace
+    step = ns(calls=ns(ticks=[ns(positions=[0, 2])], admissions=[ns(lens=[3])]))
+    assert readers.step_flops(llama, TINY, [step]) == (
+        llama.token_flops(TINY, 1, True) + llama.token_flops(TINY, 3, True) + llama.prompt_flops(TINY, 3))

@@ -9,6 +9,7 @@ import json
 from pathlib import Path
 
 TINY_MODEL = {
+    "architecture": "llama",
     "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
     "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16, "vocab_size": 256,
     "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "tie_word_embeddings": False,
@@ -36,18 +37,20 @@ MIXES = {
 LIMITS = {"logit_gap_max": 1.0, "logit_err_vs_fp8": 0.85, "tokens_compared_min": 20}
 
 
-def write_root(root: Path, extra_per_layer=(), dtype: str = "bfloat16") -> Path:
+def write_root(root: Path, extra_per_layer=(), dtype: str = "bfloat16", configs=None) -> Path:
     """Write the tiny benchmark, its models served in `dtype`, under root
-    and return root."""
+    and return root: a cell for each of `configs` (default CONFIGS) under
+    each mix."""
+    configs = CONFIGS if configs is None else configs
     pb = root / "perfbench"
     for sub in ("configs", "traffic", "cells", "metrics"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    for name, c in CONFIGS.items():
+    for name, c in configs.items():
         (pb / "configs" / f"{name}.json").write_text(json.dumps({"name": name, **c, "torch_dtype": dtype}))
     for name, mix in MIXES.items():
         (pb / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     cells = []
-    for cfg in CONFIGS:
+    for cfg in configs:
         for mix in MIXES:
             name = f"{cfg}.{mix}"
             cells.append({"name": name, "config": cfg, "traffic": mix, "chips": 1, "why": "CPU test"})
@@ -57,7 +60,7 @@ def write_root(root: Path, extra_per_layer=(), dtype: str = "bfloat16") -> Path:
     bench = {
         "command": ["python3", "-m", "perfbench.run"], "paths": ["perfbench"], "run_seconds": 1,
         "configs": [{"name": n, "source": "test", "file": f"perfbench/configs/{n}.json", "reduced": [],
-                     "why": "CPU test"} for n in CONFIGS],
+                     "why": "CPU test"} for n in configs],
         "workloads": cells,
         "end_to_end": [
             {"name": "decode_tok_s", "unit": "tokens/s", "better": "higher", "bound": 0.05,
